@@ -19,7 +19,24 @@ Phases (any failure exits non-zero before the last line is printed):
    every kernel must have launched exactly dispatches x seq_length times;
 5. the card against the CPU (plain attention) on the first image batch:
    identical keep sets, >= 95% identical captions, sGPN scores within rtol
-   1e-4 (a float near-tie in a beam step may flip a word).
+   1e-4 (a float near-tie in a beam step may flip a word);
+6. the per-row kernel (``row_attention``) against its plain version on the
+   card at the grounding path's shape (R=160) and at R=960, and the
+   beam-shared kernel at one beam in the greedy fan-out's layout (S=2000
+   rows over 2 images); same tolerances;
+7. Sub_GC_Flickr_GRD (greedy with attention capture, keep 10) on 64 images
+   in 16-image batches with a ``GroundingCollector``: ``row_attention``
+   must launch exactly dispatches x (seq_length + 1) times and the beam
+   kernel never; against the CPU on the first batch: identical keep sets,
+   >= 95% identical captions, and identical grounding entries for >= 95% of
+   the images whose best caption is identical;
+8. Sub_GC_MRNN (greedy over the image-shared fan-out, bucket 1024, NMS
+   0.55, keep 1000) on 4 images in 2-image batches: the beam-shared kernel
+   must launch exactly dispatches x seq_length times; against the CPU on
+   one image: identical keep sets and >= 95% identical captions;
+9. Sub_GC_S_MRNN (top-k sampling on the same fan-out): at the_k=1 the
+   tokens equal phase 8's greedy tokens exactly; at the_k=3 every caption is
+   non-empty and every recorded logprob is finite and <= 0.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Needs no network and imports no jax.
@@ -37,6 +54,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = 64            # 4 dispatches of 16 images
 BATCH_IMAGES = 16
 BUCKET = 128
+FANOUT_IMAGES = 4        # the M-RNN fan-out: 2 dispatches of 2 images
+FANOUT_BATCH = 2
+FANOUT_BUCKET = 1024
 F32_PEAK = 67e12         # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM device memory, bytes/s
 
@@ -77,7 +97,18 @@ def attention_bound_ms(S, B, R, G, N, H, D):
                                        else "operations")
 
 
-def attention_inputs(params, layout, S, G, seed):
+def row_attention_bound_ms(R, Hin, N, H, D):
+    """Least time for one ``row_attention`` launch, as attention_bound_ms
+    counts it: every row reads its own streams."""
+    nbytes = 4 * (R * Hin + R * N * (H + D) + R * N + Hin * H + 2 * H + 1
+                  + R * (D + N))
+    ops = R * (2 * Hin * H + 2 * N * H + 2 * N * D)
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def attention_inputs(params, layout, S, G, seed, beams=2):
     """Kernel inputs at full width: h in (-1, 1) like an LSTM output, the
     model's own h2att/alpha_net weights, projected node streams."""
     import torch
@@ -87,7 +118,7 @@ def attention_inputs(params, layout, S, G, seed):
     H, D = dec["h2att"]["w"].shape[1], dec["att_embed"]["w"].shape[1]
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = G if layout == "image" else S
-    h = torch.rand((S, 2, R), generator=g, device=dev) * 2 - 1
+    h = torch.rand((S, beams, R), generator=g, device=dev) * 2 - 1
     p_att = torch.randn((rows, n, H), generator=g, device=dev) * 0.5
     att = torch.rand((rows, n, D), generator=g, device=dev)
     if layout == "image":
@@ -104,38 +135,68 @@ def attention_inputs(params, layout, S, G, seed):
             dec["h2att"]["b"], dec["alpha_net"]["w"], dec["alpha_net"]["b"]]
 
 
-def check_attention(params, layout, S, G, seed=0):
-    """Kernel against its plain version on the card; times both."""
-    from subgc_tpu_torch.ops import attention as A
-    x = attention_inputs(params, layout, S, G, seed)
-    out, w = A.shared_attention(*x)
-    r_out, r_w = A.shared_attention_ref(*x)
+def compare_and_time(label, kernel, plain, x, bound):
+    """A kernel against its plain version on the same card inputs (weights
+    atol 1e-5, att_res rtol/atol 1e-4); times both."""
+    out, w = kernel(*x)
+    r_out, r_w = plain(*x)
     w_err = (w - r_w).abs().max().item()
     o_err = (out - r_out).abs()
     bad = (o_err > 1e-4 + 1e-4 * r_out.abs()).sum().item()
     if not (w_err <= 1e-5 and bad == 0):
-        fail(f"attention kernel ({layout}, S={S}) disagrees with its plain "
-             f"version: max |dw| {w_err:.3g}, {bad} att_res entries out of "
-             f"rtol/atol 1e-4")
-    S_, B, R = x[0].shape
-    G_, N, H = x[1].shape
-    bound, by = attention_bound_ms(S_, B, R, G_, N, H, x[2].shape[-1])
-    res = {"layout": layout, "S": S, "G": G,
-           "max_abs_err": max(w_err, o_err.max().item()),
-           "ms": cuda_ms(lambda: A.shared_attention(*x)),
-           "plain_ms": cuda_ms(lambda: A.shared_attention_ref(*x)),
-           "bound_ms": bound, "bound_by": by}
-    print(f"attention kernel {layout:8s} S={S:4d} G={G:4d}: "
-          f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-          f"bound {bound:.4f} ms ({by}), max |err| {res['max_abs_err']:.3g}")
+        fail(f"{label} disagrees with its plain version: max |dw| "
+             f"{w_err:.3g}, {bad} att_res entries out of rtol/atol 1e-4")
+    res = {"max_abs_err": max(w_err, o_err.max().item()),
+           "ms": cuda_ms(lambda: kernel(*x)),
+           "plain_ms": cuda_ms(lambda: plain(*x)),
+           "bound_ms": bound[0], "bound_by": bound[1]}
+    print(f"{label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
+          f"ms, bound {bound[0]:.4f} ms ({bound[1]}), max |err| "
+          f"{res['max_abs_err']:.3g}")
     return res
 
 
+def check_attention(params, layout, S, G, seed=0, beams=2):
+    """The beam-shared kernel against its plain version on the card."""
+    from subgc_tpu_torch.ops import attention as A
+    x = attention_inputs(params, layout, S, G, seed, beams)
+    _, B, R = x[0].shape
+    G_, N, H = x[1].shape
+    return compare_and_time(
+        f"attention kernel {layout:8s} S={S:4d} G={G:4d} B={B}",
+        A.shared_attention, A.shared_attention_ref, x,
+        attention_bound_ms(S, B, R, G_, N, H, x[2].shape[-1]))
+
+
+def check_row_attention(params, R, seed=0):
+    """The per-row kernel against its plain version on the card at full
+    width (left-packed sub-graph masks)."""
+    import torch
+    from subgc_tpu_torch.ops import attention as A
+    dec = params["decoder"]
+    dev = dec["h2att"]["w"].device
+    Hin, H = dec["h2att"]["w"].shape
+    n, D = 37, dec["att_embed"]["w"].shape[1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    count = torch.randint(3, 12, (R, 1), generator=g, device=dev)
+    x = [torch.rand((R, Hin), generator=g, device=dev) * 2 - 1,
+         torch.randn((R, n, H), generator=g, device=dev) * 0.5,
+         torch.rand((R, n, D), generator=g, device=dev),
+         (torch.arange(n, device=dev)[None] < count).float(),
+         dec["h2att"]["w"], dec["h2att"]["b"], dec["alpha_net"]["w"],
+         dec["alpha_net"]["b"]]
+    return compare_and_time(f"row attention kernel R={R:4d}",
+                            A.row_attention, A.row_attention_ref, x,
+                            row_attention_bound_ms(R, Hin, n, H, D))
+
+
 def make_examples(cfg, n_images, bucket, seed=0):
-    """Synthetic test images in the shape of bench.py's ``make_image``."""
+    """Synthetic test images in the shape of bench.py's ``make_image``, with
+    detector boxes (drawn from their own stream) for the grounding path."""
     from subgc_tpu_torch.data.dataset import ImageInfo, TestExample
     from subgc_tpu_torch.graph import SceneGraph, SubgraphSet
     rng = np.random.RandomState(seed)
+    box_rng = np.random.RandomState(seed + 1)
     N, K = cfg.obj_num, cfg.rel_num
     out = []
     for i in range(n_images):
@@ -153,10 +214,12 @@ def make_examples(cfg, n_images, bucket, seed=0):
         subs = SubgraphSet(obj_ind=obj_ind,
                            pred_ind=np.full((bucket, K), K - 1, np.int32),
                            att_mask=att_mask, valid=np.ones((bucket,), bool))
+        boxes = box_rng.rand(N - 1, 4).astype("f") * 296
+        boxes[:, 2:] += boxes[:, :2]
         out.append(TestExample(graph=graph, subs=subs, n_subgraphs=bucket,
                                info=ImageInfo(ix=i, id=i, file_path=""),
                                gts=np.zeros((0, cfg.seq_length), np.int64),
-                               sg_raw={}))
+                               sg_raw={"boxes": boxes}))
     return out
 
 
@@ -171,7 +234,7 @@ class MemoryLoader:
         return iter(self.examples[:n])
 
 
-def check_predictions(preds, n_images, keep):
+def check_predictions(preds, n_images, keep, bucket=BUCKET):
     if len(preds) != n_images:
         fail(f"{len(preds)} predictions for {n_images} images")
     for p in preds:
@@ -183,16 +246,18 @@ def check_predictions(preds, n_images, keep):
                 and (np.diff(s) <= 0).all()):
             fail(f"image {p['image_id']}: bad sGPN scores {s}")
         if len(set(ind.tolist())) != len(ind) or ind.min() < 0 \
-                or ind.max() >= BUCKET:
+                or ind.max() >= bucket:
             fail(f"image {p['image_id']}: bad keep set {ind}")
         if not all(isinstance(c, str) and c for c in p["caption"]):
             fail(f"image {p['image_id']}: empty caption")
 
 
 def phase_times(params, state, examples, cfg, ecfg, device):
-    """Median ms of encoder+sGPN+NMS and of the beam decode, one batch."""
+    """Median ms of encoder+sGPN+NMS and of the decode (beam search, or
+    greedy / top-k at beam_size 1), one batch."""
     import torch
     from subgc_tpu_torch.decode.beam import beam_search
+    from subgc_tpu_torch.decode.greedy import sample
     from subgc_tpu_torch.eval.runner import _stack_examples
     from subgc_tpu_torch.graph import to_device
     from subgc_tpu_torch.models.subgc import encode_images_batched
@@ -205,7 +270,10 @@ def phase_times(params, state, examples, cfg, ecfg, device):
             enc = encode_images_batched(params, state, graph, subs, cfg, ecfg)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            beam_search(params, enc.feats, cfg, ecfg)
+            if ecfg.beam_size > 1:
+                beam_search(params, enc.feats, cfg, ecfg)
+            else:
+                sample(params, enc.feats, cfg, ecfg)
             torch.cuda.synchronize()
             enc_ms.append(1e3 * (t1 - t0))
             dec_ms.append(1e3 * (time.perf_counter() - t1))
@@ -231,6 +299,161 @@ def compare_card_cpu(gpu_preds, cpu_preds):
                 fail(f"image {g['image_id']} sub-graph {k}: sGPN score card "
                      f"{gs[k]} cpu {cs[k]}")
     return n_same, n_total
+
+
+def grounding_tables(vocab, examples):
+    """word -> lemma -> detection class over the synthetic vocab (identity
+    lemmas, every other word a class, as tests/test_grounding_e2e.py builds
+    them for its first words), and 640 x 480 images."""
+    words = [vocab[k] for k in sorted(vocab, key=int)]
+    lemma_det = {w: i for i, w in enumerate(words[::2])}
+    return ({w: w for w in words}, lemma_det,
+            {i: w for w, i in lemma_det.items()},
+            {ex.info.id: (640, 480) for ex in examples})
+
+
+def run_grounding(params, cpu_params, state, examples, vocab):
+    """Phase 7: Sub_GC_Flickr_GRD with a collector, card and CPU.  Returns
+    the per-row kernel's launches."""
+    import torch
+    from subgc_tpu_torch import (GroundingCollector, build_configs,
+                                 run_test_split)
+    from subgc_tpu_torch.ops import attention as A
+    cfg, ecfg, _ = build_configs("Sub_GC_Flickr_GRD",
+                                 eval=dict(max_subgraph_bucket=BUCKET))
+    loader = MemoryLoader(examples)
+    tables = grounding_tables(vocab, examples)
+    run_test_split(params, state, loader, cfg, ecfg, vocab,
+                   num_images=BATCH_IMAGES, verbose=False,
+                   batch_images=BATCH_IMAGES, device="cuda")    # warm-up
+    torch.cuda.synchronize()
+    col = GroundingCollector(*tables)
+    A.LAUNCHES = A.ROW_LAUNCHES = 0
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, cfg, ecfg, vocab, verbose=False,
+        batch_images=BATCH_IMAGES, device="cuda", collect_grounding=col)
+    launches, beam_launches = A.ROW_LAUNCHES, A.LAUNCHES
+    n_dispatch = -(-len(examples) // BATCH_IMAGES)
+    if launches != n_dispatch * (cfg.seq_length + 1) or beam_launches:
+        fail(f"grounding path: row kernel launched {launches} times, beam "
+             f"kernel {beam_launches}; expected {n_dispatch} dispatches x "
+             f"{cfg.seq_length + 1} steps and 0")
+    check_predictions(preds, len(examples), ecfg.gpn_max_subg)
+    if sorted(col.output) != sorted(str(ex.info.id) for ex in examples):
+        fail("grounding path: the collector missed images")
+    n_boxes = sum(len(e[0]["bbox"]) for e in col.output.values())
+    print(f"grounding path (Sub_GC_Flickr_GRD): {len(examples)} images, "
+          f"{n_caps} captions in {wall:.3f} s = {n_caps / wall:.1f} "
+          f"captions/s; {n_boxes} grounded words; row kernel launches "
+          f"{launches}")
+
+    cpu_col = GroundingCollector(*tables)
+    t0 = time.perf_counter()
+    cpu_preds, _, _ = run_test_split(
+        cpu_params, state, loader, cfg, ecfg, vocab, num_images=BATCH_IMAGES,
+        verbose=False, batch_images=BATCH_IMAGES, device="cpu",
+        collect_grounding=cpu_col)
+    n_same, n_total = compare_card_cpu(preds[:BATCH_IMAGES], cpu_preds)
+    same_best = [str(g["image_id"]) for g, c in zip(preds, cpu_preds)
+                 if g["caption"][0] == c["caption"][0]]
+    n_grd = sum(col.output[i] == cpu_col.output[i] for i in same_best)
+    print(f"grounding card vs cpu ({time.perf_counter() - t0:.1f} s on "
+          f"cpu): {n_same}/{n_total} captions identical, keep sets "
+          f"identical, grounding entries identical for {n_grd}/"
+          f"{len(same_best)} images with the same best caption")
+    if n_same < 0.95 * n_total:
+        fail(f"grounding: only {n_same}/{n_total} captions agree between "
+             f"card and cpu")
+    if n_grd < 0.95 * len(same_best):
+        fail(f"grounding: entries agree for only {n_grd}/{len(same_best)} "
+             f"images")
+    return launches
+
+
+def run_fanout(params, cpu_params, state, vocab):
+    """Phase 8: Sub_GC_MRNN (greedy, keep 1000 at bucket 1024), card and
+    CPU.  Returns (beam-shared kernel launches, predictions with tokens,
+    the examples)."""
+    import torch
+    from subgc_tpu_torch import build_configs, run_test_split
+    from subgc_tpu_torch.ops import attention as A
+    cfg, ecfg, _ = build_configs("Sub_GC_MRNN",
+                                 eval=dict(max_subgraph_bucket=FANOUT_BUCKET))
+    examples = make_examples(cfg, FANOUT_IMAGES, FANOUT_BUCKET, seed=1)
+    loader = MemoryLoader(examples)
+    run_test_split(params, state, loader, cfg, ecfg, vocab,
+                   num_images=FANOUT_BATCH, verbose=False,
+                   batch_images=FANOUT_BATCH, device="cuda")    # warm-up
+    torch.cuda.synchronize()
+    A.LAUNCHES = A.ROW_LAUNCHES = 0
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, cfg, ecfg, vocab, verbose=False,
+        batch_images=FANOUT_BATCH, keep_tokens=True, device="cuda")
+    launches, row_launches = A.LAUNCHES, A.ROW_LAUNCHES
+    n_dispatch = -(-FANOUT_IMAGES // FANOUT_BATCH)
+    if launches != n_dispatch * cfg.seq_length or row_launches:
+        fail(f"fan-out path: beam-shared kernel launched {launches} times, "
+             f"row kernel {row_launches}; expected {n_dispatch} dispatches "
+             f"x {cfg.seq_length} steps and 0")
+    check_predictions(preds, FANOUT_IMAGES, ecfg.gpn_max_subg, FANOUT_BUCKET)
+    enc_ms, dec_ms = phase_times(params, state, examples[:FANOUT_BATCH], cfg,
+                                 ecfg, torch.device("cuda"))
+    print(f"fan-out path (Sub_GC_MRNN): {FANOUT_IMAGES} images, {n_caps} "
+          f"captions in {wall:.3f} s = {n_caps / wall:.1f} captions/s; per "
+          f"{FANOUT_BATCH}-image batch: encoder+sGPN+NMS {enc_ms:.2f} ms, "
+          f"greedy decode {dec_ms:.2f} ms; beam-shared kernel launches "
+          f"{launches}")
+
+    t0 = time.perf_counter()
+    cpu_preds, _, _ = run_test_split(
+        cpu_params, state, loader, cfg, ecfg, vocab, num_images=1,
+        verbose=False, batch_images=1, device="cpu")
+    n_same, n_total = compare_card_cpu(preds[:1], cpu_preds)
+    print(f"fan-out card vs cpu ({time.perf_counter() - t0:.1f} s on cpu, "
+          f"one image): {n_same}/{n_total} captions identical, keep sets "
+          f"identical")
+    if n_same < 0.95 * n_total:
+        fail(f"fan-out: only {n_same}/{n_total} captions agree between card "
+             f"and cpu")
+    return launches, preds, examples
+
+
+def run_topk(params, state, vocab, examples, greedy_preds):
+    """Phase 9: Sub_GC_S_MRNN on phase 8's images."""
+    import torch
+    from subgc_tpu_torch import build_configs, run_test_split
+    from subgc_tpu_torch.eval.runner import (_stack_examples,
+                                             make_batched_infer_fn)
+    from subgc_tpu_torch.graph import to_device
+    cfg, ecfg, _ = build_configs("Sub_GC_S_MRNN",
+                                 eval=dict(max_subgraph_bucket=FANOUT_BUCKET))
+    loader = MemoryLoader(examples)
+    top1, _, _ = run_test_split(
+        params, state, loader, cfg, ecfg.replace(the_k=1), vocab,
+        verbose=False, batch_images=FANOUT_BATCH, keep_tokens=True,
+        device="cuda")
+    for a, b in zip(top1, greedy_preds):
+        if not (np.array_equal(a["sorted_subgraph_ind"],
+                               b["sorted_subgraph_ind"])
+                and np.array_equal(a["tokens"], b["tokens"])):
+            fail(f"top-k at the_k=1: image {a['image_id']} differs from the "
+                 f"greedy decode")
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, cfg, ecfg, vocab, verbose=False,
+        batch_images=FANOUT_BATCH, device="cuda")
+    check_predictions(preds, len(examples), ecfg.gpn_max_subg, FANOUT_BUCKET)
+    dev = torch.device("cuda")
+    graph, subs = _stack_examples(examples[:FANOUT_BATCH])
+    out = make_batched_infer_fn(cfg, ecfg)(
+        params, state, to_device(graph, dev), to_device(subs, dev),
+        torch.Generator(device=dev).manual_seed(2019))
+    lp = out["logprobs"][out["keep_valid"]]
+    if not (torch.isfinite(lp).all() and (lp <= 0).all()):
+        fail("top-k at the_k=3: a recorded logprob is not finite and <= 0")
+    print(f"top-k fan-out (Sub_GC_S_MRNN): the_k=1 tokens equal the greedy "
+          f"tokens; the_k={ecfg.the_k}: {n_caps} captions in {wall:.3f} s = "
+          f"{n_caps / wall:.1f} captions/s, none empty; {lp.numel()} "
+          f"recorded logprobs finite and <= 0")
 
 
 def main():
@@ -263,7 +486,7 @@ def main():
           f"device {name}, count {torch.cuda.device_count()}")
 
     # ---- 2. build
-    _build.load("attention")
+    _build.load("attention")        # both kernels: one source
     info = _build.BUILD_INFO["attention"]
     if info["seconds"]:
         print(f"built attention.cu: nvcc {info['seconds']:.2f} s")
@@ -324,17 +547,40 @@ def main():
     if n_same < 0.95 * n_total:
         fail(f"only {n_same}/{n_total} captions agree between card and cpu")
 
+    # ---- 6. the per-row kernel; the beam-shared kernel at one beam
+    row_checks = [check_row_attention(params, S_main, seed=5),
+                  check_row_attention(params, 96 * keep, seed=6)]
+    checks.append(check_attention(params, "image", 2000, 2, seed=4, beams=1))
+
+    # ---- 7-9. grounding, fan-out and top-k paths
+    grd_launches = run_grounding(params, cpu_params, state, examples, vocab)
+    fan_launches, greedy_preds, fan_examples = run_fanout(
+        params, cpu_params, state, vocab)
+    run_topk(params, state, vocab, fan_examples, greedy_preds)
+
     kernels = [{
         "name": "shared_attention",
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
-        "launches": launches,
+        "launches": launches + fan_launches,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_check["ms"],
         "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "row_attention",
+        "route": "cuda",
+        "source": "subgc_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "subgc_tpu/ops/pallas_attention.py:29",
+        "launches": grd_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in row_checks),
+        "ms": row_checks[0]["ms"],
+        "plain_ms": row_checks[0]["plain_ms"],
+        "bound_ms": row_checks[0]["bound_ms"],
+        "bound_by": row_checks[0]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

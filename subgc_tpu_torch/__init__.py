@@ -1,10 +1,13 @@
 """subgc_tpu_torch — the PyTorch/CUDA port of subgc_tpu.
 
 Sub-GC scene-graph-decomposition captioning (ECCV 2020) on an NVIDIA H100:
-the Sub_GC_Kar test path (encoder -> sGPN scoring -> sub-graph NMS -> beam
-search -> ``captions_*.npy``) in PyTorch, with the decoder's beam-shared
-attention as a hand-written CUDA kernel (``ops/csrc/attention.cu``).  The
-JAX package ``subgc_tpu`` is the reference it is held against; this package
+the test path (encoder -> sGPN scoring -> sub-graph NMS -> decode ->
+``captions_*.npy``) in PyTorch, with beam search (Sub_GC_Kar), greedy and
+top-k sampling over the image-shared fan-out (Sub_GC_MRNN, Sub_GC_S_MRNN),
+and greedy with attention capture for Flickr30k-Entities grounding
+(Sub_GC_Flickr_GRD).  The decoder's additive attention runs as hand-written
+CUDA kernels (``ops/csrc/attention.cu``): beam-shared and per-row.  The JAX
+package ``subgc_tpu`` is the reference it is held against; this package
 imports neither it nor jax.
 
 Entry points run on ``device="cuda"`` unless the caller passes
@@ -17,7 +20,9 @@ from .config import (DataConfig, EvalConfig, ModelConfig,  # noqa: F401
                      config_from_json)
 from .data.dataset import EvalLoader, ImageInfo, TestExample  # noqa: F401
 from .decode.beam import BeamOut, beam_search  # noqa: F401
+from .decode.greedy import SampleOut, sample  # noqa: F401
 from .device import resolve_device  # noqa: F401
+from .eval.grounding import FlickrGrdEval, GroundingCollector  # noqa: F401
 from .eval.runner import (make_batched_infer_fn, run_test_split,  # noqa: F401
                           save_predictions)
 from .graph import (SceneGraph, SubgraphSet, make_scene_graph,  # noqa: F401

@@ -1,16 +1,17 @@
 """Test-split inference orchestration -> captions_*.npy artifacts.
 
-The beam path of ``subgc_tpu/eval/runner.py`` (reference
+The counterpart of ``subgc_tpu/eval/runner.py`` (reference
 `misc/eval_utils.py:87-172`): for each image batch, encode the scene graphs,
-score and NMS the sub-graphs, beam-decode one caption per kept sub-graph,
-sort the captions by sGPN score, and write the predictions in the
-reference's format:
+score and NMS the sub-graphs, decode one caption per kept sub-graph (beam
+search, or greedy / top-k sampling at ``beam_size`` 1), sort the captions by
+sGPN score, and write the predictions in the reference's format:
 
     captions_<iter>.npy  — list of {image_id, caption: [str],
                            subgraph_score: np[K], sorted_subgraph_ind: np[K]}
 
-Greedy and top-k decoding, mesh sharding, grounding and the verbose beam
-print-out are not ported yet.
+Under ``return_att`` the greedy decode's attention weights go to a
+``collect_grounding`` callback (``eval/grounding.py::GroundingCollector``).
+Mesh sharding, SCT order and the verbose beam print-out are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 
 from ..config import EvalConfig, ModelConfig
 from ..decode import beam as beam_mod
+from ..decode import greedy as greedy_mod
 from ..device import resolve_device
 from ..graph import SceneGraph, SubgraphSet, to_device
 from ..models import subgc
@@ -32,21 +34,21 @@ from ..utils.text import decode_sequence
 def make_batched_infer_fn(cfg: ModelConfig, ecfg: EvalConfig):
     """[B]-image program: graph [B, ...] and subs [B, S, ...] tensors in,
     a dict of [B, Smax, ...] tensors out (seq, logprobs, scores, keep_ind,
-    keep_valid)."""
-    if ecfg.beam_size <= 1:
-        raise NotImplementedError("greedy and top-k decoding are not ported "
-                                  "yet; the port runs beam search")
-    if ecfg.return_att:
-        raise NotImplementedError("attention capture (grounding) is not "
-                                  "ported yet")
+    keep_valid, and att_weights under ``return_att``).  ``generator``
+    feeds the top-k draws."""
 
     @torch.no_grad()
-    def infer(params, state, graph, subs):
+    def infer(params, state, graph, subs, generator=None):
         enc = subgc.encode_images_batched(params, state, graph, subs, cfg,
                                           ecfg)
-        out = beam_mod.beam_search(params, enc.feats, cfg, ecfg)
+        if ecfg.beam_size > 1:
+            out = beam_mod.beam_search(params, enc.feats, cfg, ecfg)
+        else:
+            out = greedy_mod.sample(params, enc.feats, cfg, ecfg, generator)
         res = dict(seq=out.seq, logprobs=out.logprobs, scores=enc.scores,
                    keep_ind=enc.keep_ind, keep_valid=enc.keep_valid)
+        if ecfg.beam_size <= 1 and ecfg.return_att:
+            res["att_weights"] = out.att_weights
         B = graph.obj_fmap.shape[0]
         return {k: v.reshape((B, -1) + v.shape[1:]) for k, v in res.items()}
 
@@ -64,16 +66,25 @@ def _stack_examples(examples):
 def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
                    vocab, split: str = "test", num_images: int = -1,
                    verbose: bool = True, batch_images: int = 16,
-                   keep_tokens: bool = False, device="cuda"):
+                   keep_tokens: bool = False, device="cuda",
+                   collect_grounding=None):
     """Decode the split on ``device``.  Returns (predictions, wall_seconds,
     n_captions).
 
     ``loader`` is anything with ``iter_split(split, num_images)`` yielding
     ``TestExample``s (``data.dataset.EvalLoader``); ``params`` must already
     lie on ``device``.
+
+    collect_grounding: optional callback(example, sents, sorted_ind,
+    att_weights, order) for the grounding path (grd_utils.py:13-61);
+    att_weights is None unless ``ecfg.return_att``.
+
+    Top-k draws come from one generator on ``device`` for the whole split,
+    seeded with 2019 as the JAX package's default key is.
     """
     dev = resolve_device(device)
     infer = make_batched_infer_fn(cfg, ecfg)
+    generator = torch.Generator(device=dev).manual_seed(2019)
     examples = list(loader.iter_split(split, num_images))
     if not examples:
         return [], 0.0, 0
@@ -87,7 +98,7 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
         padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
         graph, subs = _stack_examples(padded)
         out = infer(params, state, to_device(graph, dev),
-                    to_device(subs, dev))
+                    to_device(subs, dev), generator)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         for bi, ex in enumerate(chunk):
             n = int(out["keep_valid"][bi].sum())
@@ -108,6 +119,11 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
                 pred["tokens"] = seq[order]
             predictions.append(pred)
             n_caps += len(sents)
+            if collect_grounding is not None:
+                att = out.get("att_weights")
+                collect_grounding(ex, sents, keep_ind[order],
+                                  att[bi][:n][order] if att is not None
+                                  else None, order)
             if verbose and len(predictions) <= 3:
                 print(f"image {ex.info.id}: kept {n} sub-graphs; best: "
                       f"{sents[0] if sents else '<none>'!r}")

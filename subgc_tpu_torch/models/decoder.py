@@ -5,8 +5,8 @@ The counterpart of ``subgc_tpu/models/decoder.py`` (reference
 logit -> log_softmax.  Decoder state and tokens carry any leading shape; the
 beam search uses ``[S, bdash]`` (sub-graph, beam), where the JAX package
 vmaps over sub-graphs.  The LSTM, logit and projection products are plain
-``torch.matmul``, as the JAX package leaves them to XLA; the beam layouts'
-attention goes through the hand-written kernel in ``ops/attention.py``.
+``torch.matmul``, as the JAX package leaves them to XLA; attention goes
+through the hand-written kernels in ``ops/attention.py`` in every layout.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import ModelConfig
-from ..ops.attention import shared_attention
+from ..ops.attention import row_attention, shared_attention
 from .gpn import node_membership
 
 
@@ -114,14 +114,22 @@ def prepare_features_nodes(params, fc_feats, x_obj_img, obj_ind, att_mask,
 def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):
     """Additive attention with post-softmax masking (AttModel.py:445-471).
 
-    Beam layouts (h [S, B, R], one feature set per sub-graph row shared by
-    its B beams) go through the kernel wrapper:
+    Every layout goes through a kernel wrapper (its plain version on CPU
+    tensors).  Beam layouts (h [S, B, R], one feature set per sub-graph row
+    shared by its B beams) take :func:`shared_attention`:
 
     * image-shared: ``att_img``/``p_att_img`` [G, n, *] with ``img_ix`` [S];
     * per-sub-graph: ``att``/``p_att`` [S, N, *], streams indexed by row.
 
-    The per-row layout (h [S, R], att [S, N, R]; attention capture and
-    grounding) stays plain torch for now.  Returns (att_res, weights).
+    Per-row queries (h [S, R]; greedy and top-k):
+
+    * image-shared fan-out (``att_img`` set): rows group per image by
+      position, K = S // G consecutive rows each (JAX ``decoder.py:488-526``);
+      :func:`shared_attention` at one beam;
+    * per-row streams (``att``/``p_att`` [S, N, *]; attention capture and
+      grounding): :func:`row_attention`.
+
+    Returns (att_res, weights).
     """
     dec = params["decoder"]
     wh, bh = dec["h2att"]["w"], dec["h2att"]["b"]
@@ -136,17 +144,25 @@ def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):
                                 a.contiguous(), feats.mask.contiguous(),
                                 idx.to(torch.int32), wh, bh, v, bv)
     if feats.att_img is not None:
-        raise NotImplementedError("image-shared attention over per-row "
-                                  "queries (the greedy fan-out) is not "
-                                  "ported yet")
-    att_h = _dense(h, dec["h2att"])                           # [S, H]
-    dot = torch.tanh(feats.p_att + att_h[:, None, :])         # [S, N, H]
-    e = _dense(dot, dec["alpha_net"])[..., 0]                 # [S, N]
-    w = torch.softmax(e, dim=-1)
-    w = w * feats.mask
-    w = w / w.sum(-1, keepdim=True)
-    att_res = (w[:, None, :] @ feats.att)[:, 0]
-    return att_res, w
+        a, p = feats.att_img, feats.p_att_img
+        if a.dim() == 2:                        # single-image layout
+            a, p = a[None], p[None]
+        G, S = a.shape[0], h.shape[0]
+        # the grouping is positional and ignores img_ix, as in the JAX
+        # package: rows are the images' kept sub-graphs in order
+        if S % G != 0:
+            raise ValueError(
+                f"image-shared attention needs rows grouped per image: "
+                f"S={S} not divisible by B={G}")
+        idx = torch.arange(G, dtype=torch.int32,
+                           device=h.device).repeat_interleave(S // G)
+        out, w = shared_attention(h[:, None, :].contiguous(), p.contiguous(),
+                                  a.contiguous(), feats.mask.contiguous(),
+                                  idx, wh, bh, v, bv)
+        return out[:, 0], w[:, 0]
+    return row_attention(h.contiguous(), feats.p_att.contiguous(),
+                         feats.att.contiguous(), feats.mask.contiguous(),
+                         wh, bh, v, bv)
 
 
 def _lstm_nonlin(g, c):

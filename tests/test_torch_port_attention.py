@@ -113,8 +113,8 @@ def test_ref_all_zero_mask_gives_nan(tiny_cfg, tiny_params):
 
 
 def test_per_row_attention_matches_jax(tiny_cfg, tiny_params):
-    """The per-row layout (h [S, R], streams [S, N, *]; grounding's) stays
-    plain torch in the port's decoder.attention."""
+    """The per-row layout (h [S, R], streams [S, N, *]; grounding's) goes
+    through row_attention, which is its plain version on CPU tensors."""
     from subgc_tpu_torch.config import ModelConfig
     from subgc_tpu_torch.models import decoder as D
     from subgc_tpu_torch.models.params import params_from_numpy

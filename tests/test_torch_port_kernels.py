@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain version, and the wrapper's checks.
+"""The port's CUDA kernels against their plain versions, and the wrappers'
+checks.
 
 This file imports neither jax nor the JAX package, so the ``cuda`` tests run
 on a GPU machine that has only PyTorch:
@@ -76,3 +77,84 @@ def test_kernel_all_zero_mask_gives_nan_on_card():
     x[3][1] = 0.0
     _, w = A.shared_attention(*x)
     assert torch.isnan(w[1]).all() and torch.isfinite(w[0]).all()
+
+
+def _row_inputs(R=9, n=37, Hin=64, H=32, D=64, seed=0):
+    rng = np.random.RandomState(seed)
+    count = rng.randint(2, n, (R, 1))
+    bound = 1.0 / np.sqrt(Hin)
+    arrays = [rng.uniform(-1, 1, (R, Hin)), rng.randn(R, n, H),
+              rng.rand(R, n, D), np.arange(n)[None] < count,
+              rng.uniform(-bound, bound, (Hin, H)),
+              rng.uniform(-bound, bound, (H,)), rng.uniform(-0.2, 0.2, (H, 1)),
+              rng.uniform(-0.2, 0.2, (1,))]
+    return [torch.from_numpy(np.asarray(a, np.float32)) for a in arrays]
+
+
+def test_row_check_accepts_matching_inputs():
+    assert A._check_rows(*_row_inputs()) == (9, 64, 37, 32, 64)
+
+
+@pytest.mark.parametrize("bad", ["mask_shape", "wh_shape", "h_rank",
+                                 "dtype", "bias_dtype"])
+def test_row_check_rejects_what_the_kernel_does_not_take(bad):
+    x = _row_inputs()
+    if bad == "mask_shape":
+        x[3] = x[3][:, :-1]
+    elif bad == "wh_shape":
+        x[4] = x[4][:-1]
+    elif bad == "h_rank":
+        x[0] = x[0][:, None]
+    elif bad == "dtype":
+        x[1] = x[1].half()
+    elif bad == "bias_dtype":
+        x[7] = x[7].double()
+    with pytest.raises((ValueError, TypeError)):
+        A._check_rows(*x)
+
+
+def test_row_wrapper_on_cpu_is_plain_and_uncounted():
+    x = _row_inputs(seed=1)
+    before = A.ROW_LAUNCHES
+    out, w = A.row_attention(*x)
+    assert A.ROW_LAUNCHES == before
+    r_out, r_w = A.row_attention_ref(*x)
+    assert torch.equal(out, r_out) and torch.equal(w, r_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    dict(R=1), dict(R=9), dict(R=160, Hin=1000, H=512, D=1000),
+    dict(R=37, Hin=130, H=50, D=70),      # H, D not multiples of 4
+    dict(R=300, Hin=96, H=200, D=128)])
+def test_row_kernel_matches_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    x = [t.cuda() for t in _row_inputs(seed=shape["R"], **shape)]
+    before = A.ROW_LAUNCHES
+    out, w = A.row_attention(*x)
+    torch.cuda.synchronize()
+    assert A.ROW_LAUNCHES == before + 1
+    r_out, r_w = A.row_attention_ref(*x)
+    torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_row_kernel_all_zero_mask_gives_nan_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    x = [t.cuda() for t in _row_inputs()]
+    x[3][2] = 0.0
+    _, w = A.row_attention(*x)
+    assert torch.isnan(w[2]).all() and torch.isfinite(w[0]).all()
+
+
+@pytest.mark.cuda
+def test_row_kernel_rejects_non_contiguous_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    x = [t.cuda() for t in _row_inputs()]
+    x[2] = x[2].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.row_attention(*x)
