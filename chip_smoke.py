@@ -16,14 +16,19 @@ Phases (any failure exits non-zero before the last line is printed):
 4. the Sub_GC_Kar main path at full model width (``ModelConfig()`` defaults,
    beam 2, NMS 0.75, keep 10, bucket 128) with random weights from a seed, on
    synthetic images shaped like ``bench.py``'s, through ``run_test_split``;
-   every kernel must have launched exactly dispatches x seq_length times;
+   every kernel must have launched exactly dispatches x seq_length times
+   (the projection kernel once per attention launch, here and on every
+   path below);
 5. the card against the CPU (plain attention) on the first image batch:
    identical keep sets, >= 95% identical captions, sGPN scores within rtol
    1e-4 (a float near-tie in a beam step may flip a word);
 6. the per-row kernel (``row_attention``) against its plain version on the
    card at the grounding path's shape (R=160) and at R=960, and the
    beam-shared kernel at one beam in the greedy fan-out's layout (S=2000
-   rows over 2 images); same tolerances;
+   rows over 2 images); same tolerances; the projection stage alone
+   (``attention_project``) against its plain version at Q=320, 2000 and 160
+   (rtol / atol 1e-5), timed beside ``torch.addmm`` as a yardstick
+   (printed as a ``{"projection_stage": [...]}`` line);
 7. Sub_GC_Flickr_GRD (greedy with attention capture, keep 10) on 64 images
    in 16-image batches with a ``GroundingCollector``: ``row_attention``
    must launch exactly dispatches x (seq_length + 1) times and the beam
@@ -108,6 +113,44 @@ def row_attention_bound_ms(R, Hin, N, H, D):
                                        else "operations")
 
 
+def project_bound_ms(Q, Hin, H):
+    """Least time for the projection stage alone (h @ wh + bh), counted as
+    attention_bound_ms counts it."""
+    nbytes = 4 * (Q * Hin + Hin * H + H + Q * H)
+    t_bytes, t_ops = nbytes / HBM_RATE, 2 * Q * Hin * H / F32_PEAK
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def check_projection(params, Q, seed=0):
+    """The projection stage (``attention_project``) against its plain
+    version on the card (rtol / atol 1e-5), timed beside one library call,
+    ``torch.addmm(bh, h, wh)``, which the port never calls."""
+    import torch
+    from subgc_tpu_torch.ops import attention as A
+    dec = params["decoder"]
+    wh, bh = dec["h2att"]["w"], dec["h2att"]["b"]
+    g = torch.Generator(device=wh.device).manual_seed(seed)
+    h = torch.rand((Q, wh.shape[0]), generator=g, device=wh.device) * 2 - 1
+    ah = A.attention_project(h, wh, bh)
+    ref = A.attention_project_ref(h, wh, bh)
+    err = (ah - ref).abs()
+    if (err > 1e-5 + 1e-5 * ref.abs()).any():
+        fail(f"attention_project Q={Q} disagrees with its plain version: max "
+             f"|d| {err.max().item():.3g}")
+    bound = project_bound_ms(Q, *wh.shape)
+    res = {"max_abs_err": err.max().item(),
+           "ms": cuda_ms(lambda: A.attention_project(h, wh, bh)),
+           "plain_ms": cuda_ms(lambda: A.attention_project_ref(h, wh, bh)),
+           "library_ms": cuda_ms(lambda: torch.addmm(bh, h, wh)),
+           "bound_ms": bound[0], "bound_by": bound[1]}
+    print(f"projection stage Q={Q:4d} {A.project_plan(Q, *wh.shape)}: kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, torch.addmm "
+          f"{res['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"max |err| {res['max_abs_err']:.3g}")
+    return res
+
+
 def attention_inputs(params, layout, S, G, seed, beams=2):
     """Kernel inputs at full width: h in (-1, 1) like an LSTM output, the
     model's own h2att/alpha_net weights, projected node streams."""
@@ -162,8 +205,9 @@ def check_attention(params, layout, S, G, seed=0, beams=2):
     x = attention_inputs(params, layout, S, G, seed, beams)
     _, B, R = x[0].shape
     G_, N, H = x[1].shape
+    plan = A.attention_plan(S, B, G_, R, H)
     return compare_and_time(
-        f"attention kernel {layout:8s} S={S:4d} G={G:4d} B={B}",
+        f"attention kernel {layout:8s} S={S:4d} G={G:4d} B={B} {plan}",
         A.shared_attention, A.shared_attention_ref, x,
         attention_bound_ms(S, B, R, G_, N, H, x[2].shape[-1]))
 
@@ -185,9 +229,19 @@ def check_row_attention(params, R, seed=0):
          (torch.arange(n, device=dev)[None] < count).float(),
          dec["h2att"]["w"], dec["h2att"]["b"], dec["alpha_net"]["w"],
          dec["alpha_net"]["b"]]
-    return compare_and_time(f"row attention kernel R={R:4d}",
+    plan = A.attention_plan(R, 1, R, Hin, H)
+    return compare_and_time(f"row attention kernel R={R:4d} {plan}",
                             A.row_attention, A.row_attention_ref, x,
                             row_attention_bound_ms(R, Hin, n, H, D))
+
+
+def check_project_launches(path, launches):
+    """Every attention launch of a path formed its h @ wh with the
+    projection kernel, and nothing else launched it."""
+    from subgc_tpu_torch.ops import attention as A
+    if A.PROJECT_LAUNCHES != launches:
+        fail(f"{path}: projection kernel launched {A.PROJECT_LAUNCHES} "
+             f"times for {launches} attention launches")
 
 
 def make_examples(cfg, n_images, bucket, seed=0):
@@ -328,7 +382,7 @@ def run_grounding(params, cpu_params, state, examples, vocab):
                    batch_images=BATCH_IMAGES, device="cuda")    # warm-up
     torch.cuda.synchronize()
     col = GroundingCollector(*tables)
-    A.LAUNCHES = A.ROW_LAUNCHES = 0
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda", collect_grounding=col)
@@ -338,6 +392,7 @@ def run_grounding(params, cpu_params, state, examples, vocab):
         fail(f"grounding path: row kernel launched {launches} times, beam "
              f"kernel {beam_launches}; expected {n_dispatch} dispatches x "
              f"{cfg.seq_length + 1} steps and 0")
+    check_project_launches("grounding path", launches)
     check_predictions(preds, len(examples), ecfg.gpn_max_subg)
     if sorted(col.output) != sorted(str(ex.info.id) for ex in examples):
         fail("grounding path: the collector missed images")
@@ -385,7 +440,7 @@ def run_fanout(params, cpu_params, state, vocab):
                    num_images=FANOUT_BATCH, verbose=False,
                    batch_images=FANOUT_BATCH, device="cuda")    # warm-up
     torch.cuda.synchronize()
-    A.LAUNCHES = A.ROW_LAUNCHES = 0
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=FANOUT_BATCH, keep_tokens=True, device="cuda")
@@ -395,6 +450,7 @@ def run_fanout(params, cpu_params, state, vocab):
         fail(f"fan-out path: beam-shared kernel launched {launches} times, "
              f"row kernel {row_launches}; expected {n_dispatch} dispatches "
              f"x {cfg.seq_length} steps and 0")
+    check_project_launches("fan-out path", launches)
     check_predictions(preds, FANOUT_IMAGES, ecfg.gpn_max_subg, FANOUT_BUCKET)
     enc_ms, dec_ms = phase_times(params, state, examples[:FANOUT_BATCH], cfg,
                                  ecfg, torch.device("cuda"))
@@ -518,15 +574,17 @@ def main():
                    num_images=BATCH_IMAGES, verbose=False,
                    batch_images=BATCH_IMAGES, device="cuda")    # warm-up
     torch.cuda.synchronize()
-    A.LAUNCHES = 0
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda")
     launches = A.LAUNCHES
     n_dispatch = -(-N_IMAGES // BATCH_IMAGES)
-    if launches != n_dispatch * cfg.seq_length:
-        fail(f"attention kernel launched {launches} times on the main path, "
-             f"expected {n_dispatch} dispatches x {cfg.seq_length} steps")
+    if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
+        fail(f"attention kernel launched {launches} times on the main path "
+             f"(row kernel {A.ROW_LAUNCHES}), expected {n_dispatch} "
+             f"dispatches x {cfg.seq_length} steps (and 0)")
+    check_project_launches("main path", launches)
     check_predictions(preds, N_IMAGES, keep)
     enc_ms, dec_ms = phase_times(params, state, examples[:BATCH_IMAGES], cfg,
                                  ecfg, torch.device("cuda"))
@@ -551,6 +609,11 @@ def main():
     row_checks = [check_row_attention(params, S_main, seed=5),
                   check_row_attention(params, 96 * keep, seed=6)]
     checks.append(check_attention(params, "image", 2000, 2, seed=4, beams=1))
+    projections = [check_projection(params, Q, seed=10 + i)
+                   for i, Q in enumerate((S_main * 2, 2000, S_main))]
+    print(json.dumps({"projection_stage": [
+        {"Q": Q, **p} for Q, p in zip((S_main * 2, 2000, S_main),
+                                      projections)]}))
 
     # ---- 7-9. grounding, fan-out and top-k paths
     grd_launches = run_grounding(params, cpu_params, state, examples, vocab)

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` file has a plain C interface.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/<name>-<hash>.so`` beside this
-module, keyed by a hash of the source and the flags, and loaded with
-``ctypes``.  Nothing is built when the module is imported.
+module, keyed by a hash of every file under ``csrc/`` and the flags, and
+loaded with ``ctypes``.  Nothing is built when the module is imported.
 """
 from __future__ import annotations
 
@@ -40,13 +40,21 @@ def nvcc_path() -> str:
     return path
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``<name>``, every file under ``csrc/`` (a header it includes
+    changes the library too) and the flags."""
+    digest = hashlib.sha256(f"{name}\0{' '.join(NVCC_FLAGS)}".encode())
+    for fname in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f"\0{fname}\0".encode() + f.read())
+    return digest.hexdigest()[:16]
+
+
 def library_path(name: str) -> str:
     """Build ``csrc/<name>.cu`` if its hashed library is missing; return the
     path of the shared library."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{name}-{source_digest(name)}.so")
     if os.path.exists(out):
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
         return out

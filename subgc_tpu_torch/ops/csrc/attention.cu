@@ -1,13 +1,16 @@
-// Additive attention for the TopDown decoder, float32, Hopper: the
-// beam-shared kernel (this note) and the per-row kernel (its own note
-// further down), which share the warp reductions and the masked softmax.
+// Additive attention for the TopDown decoder, float32, Hopper, in two
+// stages that both wrappers share: a staged projection (project_kernel) and
+// an attention kernel (attend_kernel).
 //
-// The beam-shared kernel replaces the TPU kernel subgc_tpu/ops/pallas_attention.py::
-// _attention_shared_kernel (entry fused_attention_shared), generalised with a
-// row -> stream index so that one kernel serves both beam layouts:
+// They replace the two TPU kernels of subgc_tpu/ops/pallas_attention.py:
 //
-//   per-sub-graph streams: G = S, idx = arange(S)
-//   image-shared streams:  G = images, idx = img_ix, mask = node membership
+//   _attention_shared_kernel (entry fused_attention_shared): each row's
+//     streams serve its B beams.  Generalised with a row -> stream index so
+//     that one kernel serves both beam layouts and the greedy fan-out:
+//       per-sub-graph streams: G = S, idx = arange(S)
+//       image-shared streams:  G = images, idx = img_ix, mask = membership
+//   _attention_kernel (entry fused_attention): one query per row over the
+//     row's own streams; here the same kernels at B = 1, idx = arange(R).
 //
 // For each row s and beam b (query q = s*B + b):
 //   ah   = h[s,b] @ wh + bh                       [H]
@@ -15,63 +18,55 @@
 //   w    = softmax(e) * mask[s];  w /= sum(w)     (an all-zero mask gives NaN)
 //   out  = w @ att[idx[s]]                        [D]
 //
-// What bounds it on an H100: for a 96-image batch in the image-shared layout
-// (S=960 rows, B=2, R=D=1000, H=512, N=37) the work is ~2.2 GFLOP, almost
-// all of it the h @ wh projection, against ~39 MB of compulsory traffic, so
-// the bound is float32 CUDA-core operations (tensor cores are not used: the
-// reference is full float32).  The per-sub-graph layout reads S copies of
-// the streams instead and is bound by bytes.  The second pressure point is
-// wh (R x H = 2 MB), which every block reads from L2.
+// What bounds it on an H100 (full width: Hin = D = 1000, H = 512, N = 37):
+// the projection h @ wh is nearly all of the operations (2 Hin H FLOP per
+// query), so the image-shared layouts, whose rows share few streams, are
+// bound by float32 CUDA-core operations (no tensor cores: the reference is
+// full float32 and TF32 would break its tolerance).  Rows with streams of
+// their own (per-sub-graph, per-row) read N (H + D) floats each, 224 KB, and
+// are bound by bytes.  Above the multiply-add bound sit the S B N H accurate
+// tanhf evaluations.
 //
-// Design: one block of 1024 threads takes ROWS rows (ROWS*B ~ 4 queries).
-// h is staged in shared memory k-major, so a thread reads its queries'
-// values for one k as one float4 broadcast; each thread owns a column j of
-// the projection and keeps 16 loads of wh in flight (the loop is bound by L2
-// latency, not by the multiply-adds, at the main path's 20-160 row blocks).
-// ah then lives in shared memory; one warp per (row, node) pair reduces
-// tanh(.)*v over H for the row's B beams, reading each p_att element once;
-// one warp per query runs the softmax over N nodes (lanes stride N, so
-// N > 32 needs no cross-warp step); the weighted sum over att reads each
-// stream element once per row for all B beams.  Consecutive rows of an image
-// share one image's streams, which the image-shared layout reads from L2.
+// Design.
+// 1. project_kernel: a SIMT SGEMM.  A block owns a BM x BN tile of the
+//    queries' projections; the k-slices of h and wh pass through a ring of
+//    kStages shared-memory stages filled by cp.async (16-byte copies where
+//    rows are 16-byte aligned, else 4-byte), so the next slices load while
+//    the block multiplies the current one.  Each thread keeps an 8 x 4
+//    register tile: per four k it reads 8 + 4 float4s from shared memory for
+//    128 multiply-adds.  wh is read from L2 once per BM queries, not once
+//    per block of 4 queries.  Where the tiles alone would not
+//    give ~2 blocks per SM, k is split over gridDim.z and each split writes
+//    its partial sums to a [splits, Q, H] scratch; the consumer adds them in
+//    split order (no atomics: the result does not depend on block order).
+//    The plan (BM, BN, splits) comes from the caller (ops/attention.py).
+// 2. attend_kernel: a block owns rows_per_block consecutive rows.  It sums
+//    the partials and bh into ah in shared memory, then walks the runs of
+//    its rows that share a stream: one thread starts bulk copies
+//    (cp.async.bulk, an mbarrier per 8 nodes) of the stream's p_att into
+//    shared memory, and a warp starts on a node as soon as its chunk has
+//    landed.  A warp per node reduces tanh(p + ah) * v over H for every
+//    query of the run, reading each p_att element once for all of them; a
+//    warp per query runs the masked softmax in the JAX order; each thread
+//    owns 4 columns of the weighted sum over att, keeps 8 float4 loads of
+//    att in flight and reads each att element once for all queries of the
+//    run.  Rows with streams of their own are one row per block; in the
+//    image-shared layouts a block takes up to 16 queries.
 // Plain tanhf/expf, no fast math.
 //
-// The block shape was chosen with tools/sweep_attention_tiles.py: at the
-// main path's 16-image batch (S=160) fewer queries per block win (more
-// blocks in flight); at S=960, 8-16 queries per block read wh less often
-// and are ~20% faster than this default (PERF.md).
+// Measured on an H100 (PERF.md): the attention stage is bound by the
+// latency of its serial phases more than by tanhf; an L2 prefetch of att
+// during the tanh phase, and starting the first stream copy before the
+// partial sums, were both slower and are not used.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <math_constants.h>
-
-#include <algorithm>
+#include <stdint.h>
 
 namespace {
 
-// Block shape and the unroll of the projection's k loop (loads of wh in
-// flight per thread).  The defaults are the build's; tools/sweep_attention_tiles.py
-// compiles other values with -D to time them.
-#ifndef SUBGC_ATT_THREADS
-#define SUBGC_ATT_THREADS 1024
-#endif
-#ifndef SUBGC_ATT_QUERIES
-#define SUBGC_ATT_QUERIES 4
-#endif
-#ifndef SUBGC_ATT_UNROLL
-#define SUBGC_ATT_UNROLL 16
-#endif
-constexpr int kThreads = SUBGC_ATT_THREADS;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQueries = SUBGC_ATT_QUERIES;  // target queries (row x beam)
-constexpr int kUnroll = SUBGC_ATT_UNROLL;
 constexpr size_t kMaxSmem = 227 * 1024;
-
-template <int B>
-struct Tile {
-  static constexpr int ROWS = kQueries / B > 0 ? kQueries / B : 1;
-  static constexpr int RB = ROWS * B;
-};
 
 // Admit smem bytes of dynamic shared memory for kernel: above 48 KB a
 // kernel must opt in.
@@ -80,6 +75,10 @@ cudaError_t set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -126,411 +125,582 @@ __device__ __forceinline__ void masked_softmax_warp(
   }
 }
 
-template <int B>
-__global__ void __launch_bounds__(kThreads)
-shared_attention_kernel(const float* __restrict__ h,
-                        const float* __restrict__ p_att,
-                        const float* __restrict__ att,
-                        const float* __restrict__ mask,
-                        const int* __restrict__ idx,
-                        const float* __restrict__ wh,
-                        const float* __restrict__ bh,
-                        const float* __restrict__ v,
-                        const float* __restrict__ bv,
-                        float* __restrict__ out, float* __restrict__ w_out,
-                        int S, int R, int G, int N, int H, int D) {
-  constexpr int ROWS = Tile<B>::ROWS;
-  constexpr int RB = Tile<B>::RB;
-  extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);   // [R][RB], k-major
-  float* ah_s = h_s + (size_t)R * RB;             // [RB][H]
-  float* e_s = ah_s + (size_t)RB * H;             // [RB][N]: logits, weights
-  __shared__ int g_s[ROWS];
+// ---- cp.async (global -> shared; the bytes past `valid` are zero-filled)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int s0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, S - s0);
-  const int nq = rows * B;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid)
+               : "memory");
+}
 
-  if (tid < ROWS) {
-    // out-of-range stream indices clamp, as the JAX gather does
-    const int g = tid < rows ? idx[s0 + tid] : 0;
-    g_s[tid] = min(max(g, 0), G - 1);
-  }
-  const float* hb = h + (size_t)s0 * B * R;
-  for (int i = tid; i < RB * R; i += kThreads) {
-    const int q = i / R;
-    const int k = i - q * R;
-    h_s[k * RB + q] = q < nq ? hb[i] : 0.f;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // ---- ah = h @ wh + bh: each thread owns columns j, all RB queries
-  for (int j = tid; j < H; j += kThreads) {
-    float acc[RB];
-#pragma unroll
-    for (int q = 0; q < RB; ++q) acc[q] = 0.f;
-#pragma unroll kUnroll
-    for (int k = 0; k < R; ++k) {
-      const float wv = __ldg(wh + (size_t)k * H + j);
-      if constexpr (RB % 4 == 0) {
-        const float4* hk = reinterpret_cast<const float4*>(h_s + k * RB);
-#pragma unroll
-        for (int q4 = 0; q4 < RB / 4; ++q4) {
-          const float4 x = hk[q4];
-          acc[4 * q4 + 0] = fmaf(x.x, wv, acc[4 * q4 + 0]);
-          acc[4 * q4 + 1] = fmaf(x.y, wv, acc[4 * q4 + 1]);
-          acc[4 * q4 + 2] = fmaf(x.z, wv, acc[4 * q4 + 2]);
-          acc[4 * q4 + 3] = fmaf(x.w, wv, acc[4 * q4 + 3]);
-        }
-      } else {
-        const float* hk = h_s + k * RB;
-#pragma unroll
-        for (int q = 0; q < RB; ++q) acc[q] = fmaf(hk[q], wv, acc[q]);
-      }
-    }
-    const float b = bh[j];
-#pragma unroll
-    for (int q = 0; q < RB; ++q) ah_s[q * H + j] = acc[q] + b;
-  }
-  __syncthreads();
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  // ---- e[q, j] = tanh(p_att[g, j] + ah[q]) @ v + bv: a warp per (row, j),
-  // each p_att element read once for the row's B beams
-  const float bias_v = bv[0];
-  for (int p = warp; p < rows * N; p += kWarps) {
-    const int r = p / N;
-    const int j = p - r * N;
-    const float* pr = p_att + ((size_t)g_s[r] * N + j) * H;
-    const float* ar = ah_s + (size_t)r * B * H;
-    float sum[B];
-#pragma unroll
-    for (int b = 0; b < B; ++b) sum[b] = 0.f;
-    for (int c = lane; c < H; c += 32) {
-      const float pc = __ldg(pr + c);
-      const float vc = __ldg(v + c);
-#pragma unroll
-      for (int b = 0; b < B; ++b)
-        sum[b] = fmaf(tanhf(pc + ar[b * H + c]), vc, sum[b]);
-    }
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const float e = warp_sum(sum[b]);
-      if (lane == 0) e_s[(r * B + b) * N + j] = e + bias_v;
-    }
-  }
-  __syncthreads();
+// ---- mbarriers and bulk copies
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
 
-  // ---- softmax over nodes, mask, renormalise: a warp per query
-  for (int q = warp; q < nq; q += kWarps) {
-    const int s = s0 + q / B;
-    masked_softmax_warp(e_s + q * N, mask + (size_t)s * N,
-                        w_out + ((size_t)s0 * B + q) * N, N, lane);
-  }
-  __syncthreads();
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
 
-  // ---- out[s, b] = w[s, b] @ att[g]: each stream element read once per row
-  for (int r = 0; r < rows; ++r) {
-    const float* ag = att + (size_t)g_s[r] * N * D;
-    const float* wr = e_s + r * B * N;
-    float* orow = out + (size_t)(s0 + r) * B * D;
-    for (int d = tid; d < D; d += kThreads) {
-      float acc[B];
-#pragma unroll
-      for (int b = 0; b < B; ++b) acc[b] = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float a = __ldg(ag + (size_t)j * D + d);
-#pragma unroll
-        for (int b = 0; b < B; ++b) acc[b] = fmaf(wr[b * N + j], a, acc[b]);
-      }
-#pragma unroll
-      for (int b = 0; b < B; ++b) orow[b * D + d] = acc[b];
-    }
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-template <int B>
-cudaError_t launch(const float* h, const float* p_att, const float* att,
-                   const float* mask, const int* idx, const float* wh,
-                   const float* bh, const float* v, const float* bv,
-                   float* out, float* w, int S, int R, int G, int N, int H,
-                   int D, cudaStream_t stream) {
-  constexpr int ROWS = Tile<B>::ROWS;
-  constexpr int RB = Tile<B>::RB;
-  const size_t smem =
-      sizeof(float) * ((size_t)R * RB + (size_t)RB * H + (size_t)RB * N);
-  const cudaError_t err =
-      set_smem((const void*)shared_attention_kernel<B>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + ROWS - 1) / ROWS);
-  shared_attention_kernel<B><<<grid, kThreads, smem, stream>>>(
-      h, p_att, att, mask, idx, wh, bh, v, bv, out, w, S, R, G, N, H, D);
-  return cudaGetLastError();
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // ===========================================================================
-// Per-row additive attention.
-//
-// Replaces the TPU kernel subgc_tpu/ops/pallas_attention.py::
-// _attention_kernel (entry fused_attention): the same chain with one query
-// per row and each row's own [N, H] / [N, D] streams (the attention-capture
-// layout of the grounding decode):
-//
-//   ah   = h[r] @ wh + bh                        [H]
-//   e[j] = tanh(p_att[r, j] + ah) @ v + bv       j < N
-//   w    = softmax(e) * mask[r];  w /= sum(w)    (an all-zero mask gives NaN)
-//   out  = w @ att[r]                            [D]
-//
-// What bounds it on an H100: bytes.  Rows share no streams, so each row
-// reads its own N x (H + D) floats (37 x 1512 x 4 B ~ 224 KB at full width);
-// at the grounding path's 16-image batch (R = 160, Hin = D = 1000, H = 512)
-// that is ~39 MB against ~0.18 GFLOP, 0.0117 ms of HBM time against
-// 0.0027 ms of float32 operations.
-//
-// Design: two launches, both from subgc_row_attention_f32.
-// 1. row_project_kernel forms h @ wh in tiles of kProjRows rows x kProjCols
-//    columns, so wh (Hin x H, 2 MB) is read from L2 once per tile of rows
-//    rather than once per row; the k axis is split over gridDim.z so that
-//    a 160-row batch still starts ~2 blocks per SM.  Each split writes its
-//    partial sums to a [splits, R, H] scratch (no atomics: the result does
-//    not depend on the order blocks run in).
-// 2. row_attention_kernel gives each row a block of kRowThreads threads, so
-//    the byte-bound stream reads spread over every SM: it sums the partials
-//    and bh into ah in shared memory, one warp per node reduces
-//    tanh(p + ah) * v over H (float4 loads, 4 in flight per lane), warp 0
-//    runs the masked softmax, and each thread owns 4 columns of the
-//    weighted sum over att (8 loads in flight).
-// Plain tanhf/expf, no fast math.
+// Stage 1: part[z, q, :] = h[q, kz] @ wh[kz, :] over split z's k range kz.
 // ===========================================================================
 
-constexpr int kProjRows = 16;     // rows of a projection tile (accumulators)
-constexpr int kProjCols = 128;    // columns of a projection tile (threads)
-constexpr int kProjUnroll = 16;   // loads of wh in flight per thread
-constexpr int kProjMinChunk = 64; // least k per split
-constexpr int kProjMaxSplits = 8;
-constexpr int kTargetBlocks = 2 * 132;   // two blocks per SM of an H100 SXM
-constexpr int kRowThreads = 256;
-constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kBK = 16;              // k per ring slice
+constexpr int kTM = 8;               // rows of a thread's register tile
+constexpr int kTN = 4;               // columns of a thread's register tile
+constexpr int kStages = 3;           // slices in the ring
+constexpr int kAStride = kBK + 4;    // padded row of an h slice (floats)
 
-__global__ void __launch_bounds__(kProjCols)
-row_project_kernel(const float* __restrict__ h, const float* __restrict__ wh,
-                   float* __restrict__ part, int R, int Hin, int H,
-                   int kchunk) {
+template <int BM, int BN>
+__global__ void __launch_bounds__(BM * BN / (kTM * kTN))
+project_kernel(const float* __restrict__ h, const float* __restrict__ wh,
+               float* __restrict__ part, int Q, int Hin, int H, int kchunk,
+               int vec) {
+  constexpr int T = BM * BN / (kTM * kTN);
+  constexpr int CG = BN / kTN;   // column groups
+  constexpr int RS = BM / kTM;   // stride between a thread's rows
   extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);   // [kchunk][kProjRows]
+  float* As = reinterpret_cast<float*>(smem4);   // [kStages][BM][kAStride]
+  float* Bs = As + kStages * BM * kAStride;      // [kStages][kBK][BN]
+
   const int tid = threadIdx.x;
-  const int j = blockIdx.x * kProjCols + tid;
-  const int r0 = blockIdx.y * kProjRows;
-  const int rows = min(kProjRows, R - r0);
-  const int k0 = blockIdx.z * kchunk;
-  const int kn = min(kchunk, Hin - k0);
-  for (int i = tid; i < kProjRows * kn; i += kProjCols) {
-    const int q = i / kn;
-    const int k = i - q * kn;
-    h_s[k * kProjRows + q] =
-        q < rows ? h[(size_t)(r0 + q) * Hin + k0 + k] : 0.f;
-  }
-  __syncthreads();
-  if (j >= H) return;
+  const int tr = tid / CG;
+  const int tc = tid - tr * CG;
+  const int q0 = blockIdx.x * BM;
+  const int j0 = blockIdx.y * BN;
+  const int kb = blockIdx.z * kchunk;
+  const int ke = min(kb + kchunk, Hin);
+  const int nk = (ke - kb + kBK - 1) / kBK;
 
-  float acc[kProjRows];
+  auto load = [&](int t, int st) {
+    const int k0 = kb + t * kBK;
+    float* as = As + st * BM * kAStride;
+    float* bs = Bs + st * kBK * BN;
+    if (vec) {
 #pragma unroll
-  for (int q = 0; q < kProjRows; ++q) acc[q] = 0.f;
-  const float* wcol = wh + (size_t)k0 * H + j;
-#pragma unroll kProjUnroll
-  for (int k = 0; k < kn; ++k) {
-    const float wv = __ldg(wcol + (size_t)k * H);
-    const float4* hk = reinterpret_cast<const float4*>(h_s + k * kProjRows);
+      for (int i = tid; i < BM * kBK / 4; i += T) {
+        const int r = i / (kBK / 4);
+        const int c = (i - r * (kBK / 4)) * 4;
+        const int q = q0 + r, k = k0 + c;
+        const int valid = q < Q ? min(max((ke - k) * 4, 0), 16) : 0;
+        cp_async16(as + r * kAStride + c,
+                   valid ? h + (size_t)q * Hin + k : h, valid);
+      }
 #pragma unroll
-    for (int q4 = 0; q4 < kProjRows / 4; ++q4) {
-      const float4 x = hk[q4];
-      acc[4 * q4 + 0] = fmaf(x.x, wv, acc[4 * q4 + 0]);
-      acc[4 * q4 + 1] = fmaf(x.y, wv, acc[4 * q4 + 1]);
-      acc[4 * q4 + 2] = fmaf(x.z, wv, acc[4 * q4 + 2]);
-      acc[4 * q4 + 3] = fmaf(x.w, wv, acc[4 * q4 + 3]);
-    }
-  }
-  float* prow = part + ((size_t)blockIdx.z * R + r0) * H + j;
-  for (int q = 0; q < rows; ++q) prow[(size_t)q * H] = acc[q];
-}
-
-// VEC: H and D are multiples of 4 and the streams are 16-byte aligned.
-template <bool VEC>
-__global__ void __launch_bounds__(kRowThreads)
-row_attention_kernel(const float* __restrict__ p_att,
-                     const float* __restrict__ att,
-                     const float* __restrict__ mask,
-                     const float* __restrict__ part,
-                     const float* __restrict__ bh,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bv,
-                     float* __restrict__ out, float* __restrict__ w_out,
-                     int R, int N, int H, int D, int splits) {
-  extern __shared__ float4 smem4[];
-  float* ah_s = reinterpret_cast<float*>(smem4);  // [H]
-  float* v_s = ah_s + H;                           // [H]
-  float* e_s = v_s + H;                            // [N]: logits, weights
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r = blockIdx.x;
-
-  // ---- ah = (sum of the k-split partials) + bh
-  for (int c = tid; c < H; c += kRowThreads) {
-    float a = part[(size_t)r * H + c];
-    for (int z = 1; z < splits; ++z) a += part[((size_t)z * R + r) * H + c];
-    ah_s[c] = a + bh[c];
-    v_s[c] = v[c];
-  }
-  __syncthreads();
-
-  // ---- e[j] = tanh(p_att[r, j] + ah) @ v + bv: a warp per node
-  const float bias_v = bv[0];
-  for (int j = warp; j < N; j += kRowWarps) {
-    const float* pr = p_att + ((size_t)r * N + j) * H;
-    float sum = 0.f;
-    if constexpr (VEC) {
-      const float4* p4 = reinterpret_cast<const float4*>(pr);
-      const float4* a4 = reinterpret_cast<const float4*>(ah_s);
-      const float4* v4 = reinterpret_cast<const float4*>(v_s);
-#pragma unroll 4
-      for (int c = lane; c < H / 4; c += 32) {
-        const float4 p = __ldg(p4 + c);
-        const float4 a = a4[c];
-        const float4 vc = v4[c];
-        sum = fmaf(tanhf(p.x + a.x), vc.x, sum);
-        sum = fmaf(tanhf(p.y + a.y), vc.y, sum);
-        sum = fmaf(tanhf(p.z + a.z), vc.z, sum);
-        sum = fmaf(tanhf(p.w + a.w), vc.w, sum);
+      for (int i = tid; i < kBK * BN / 4; i += T) {
+        const int r = i / (BN / 4);
+        const int c = (i - r * (BN / 4)) * 4;
+        const int k = k0 + r, j = j0 + c;
+        const int valid = k < ke ? min(max((H - j) * 4, 0), 16) : 0;
+        cp_async16(bs + r * BN + c, valid ? wh + (size_t)k * H + j : wh,
+                   valid);
       }
     } else {
 #pragma unroll 4
-      for (int c = lane; c < H; c += 32)
-        sum = fmaf(tanhf(__ldg(pr + c) + ah_s[c]), v_s[c], sum);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) e_s[j] = sum + bias_v;
-  }
-  __syncthreads();
-
-  if (warp == 0)
-    masked_softmax_warp(e_s, mask + (size_t)r * N, w_out + (size_t)r * N, N,
-                        lane);
-  __syncthreads();
-
-  // ---- out[r] = w @ att[r]: each thread owns 4 columns (VEC) or 1
-  const float* ar = att + (size_t)r * N * D;
-  float* orow = out + (size_t)r * D;
-  if constexpr (VEC) {
-    const int D4 = D / 4;
-    const float4* a4 = reinterpret_cast<const float4*>(ar);
-    for (int d = tid; d < D4; d += kRowThreads) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-      for (int j = 0; j < N; ++j) {
-        const float4 a = __ldg(a4 + (size_t)j * D4 + d);
-        const float wj = e_s[j];
-        acc.x = fmaf(wj, a.x, acc.x);
-        acc.y = fmaf(wj, a.y, acc.y);
-        acc.z = fmaf(wj, a.z, acc.z);
-        acc.w = fmaf(wj, a.w, acc.w);
+      for (int i = tid; i < BM * kBK; i += T) {
+        const int r = i / kBK;
+        const int c = i - r * kBK;
+        const int q = q0 + r, k = k0 + c;
+        const int valid = q < Q && k < ke ? 4 : 0;
+        cp_async4(as + r * kAStride + c,
+                  valid ? h + (size_t)q * Hin + k : h, valid);
       }
-      reinterpret_cast<float4*>(orow)[d] = acc;
+#pragma unroll 4
+      for (int i = tid; i < kBK * BN; i += T) {
+        const int r = i / BN;
+        const int c = i - r * BN;
+        const int k = k0 + r, j = j0 + c;
+        const int valid = k < ke && j < H ? 4 : 0;
+        cp_async4(bs + r * BN + c, valid ? wh + (size_t)k * H + j : wh,
+                  valid);
+      }
     }
-  } else {
-    for (int d = tid; d < D; d += kRowThreads) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < N; ++j)
-        acc = fmaf(e_s[j], __ldg(ar + (size_t)j * D + d), acc);
-      orow[d] = acc;
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kStages - 2>();   // slice t has landed
+    __syncthreads();                // and every thread is done with t - 1
+    const int tn = t + kStages - 1;
+    if (tn < nk) load(tn, tn % kStages);   // into the stage of t - 1
+    cp_async_commit();
+    const float* as = As + (t % kStages) * BM * kAStride;
+    const float* bs = Bs + (t % kStages) * kBK * BN;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 a[kTM];
+      float4 b[4];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + (tr + i * RS) * kAStride
+                                                + kk);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        b[c] = *reinterpret_cast<const float4*>(bs + (kk + c) * BN
+                                                + tc * kTN);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[i][0] = fmaf(av[c], b[c].x, acc[i][0]);
+          acc[i][1] = fmaf(av[c], b[c].y, acc[i][1]);
+          acc[i][2] = fmaf(av[c], b[c].z, acc[i][2]);
+          acc[i][3] = fmaf(av[c], b[c].w, acc[i][3]);
+        }
+      }
+    }
+  }
+
+  float* out = part + (size_t)blockIdx.z * Q * H;
+  const int j = j0 + tc * kTN;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int q = q0 + tr + i * RS;
+    if (q >= Q) continue;
+    float* orow = out + (size_t)q * H;
+    if (vec && j + kTN <= H) {
+      *reinterpret_cast<float4*>(orow + j) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kTN; ++c)
+        if (j + c < H) orow[j + c] = acc[i][c];
     }
   }
 }
 
-// k per split for a split count (subgc_row_attention_splits then trims the
-// count so that no split is empty).
-int row_chunk(int Hin, int splits) { return (Hin + splits - 1) / splits; }
+// ah = (sum of the split partials, in split order) + bh: the standalone
+// projection's epilogue; attend_kernel forms the same sum itself.
+__global__ void project_sum_kernel(const float* __restrict__ part,
+                                   const float* __restrict__ bh,
+                                   float* __restrict__ ah, int Q, int H,
+                                   int splits) {
+  const size_t n = (size_t)Q * H;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float a = part[i];
+  for (int z = 1; z < splits; ++z) a += part[z * n + i];
+  ah[i] = a + bh[i % H];
+}
+
+// k per split: whole ring slices.  The plan is valid when no split is empty.
+int project_chunk(int Hin, int splits) {
+  const int slices = (Hin + kBK - 1) / kBK;
+  return (slices + splits - 1) / splits * kBK;
+}
+
+template <int BM, int BN>
+cudaError_t launch_project_tile(const float* h, const float* wh, float* part,
+                                int Q, int Hin, int H, int splits, int vec,
+                                cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * kStages * ((size_t)BM * kAStride + (size_t)kBK * BN);
+  const cudaError_t err = set_smem((const void*)project_kernel<BM, BN>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Q + BM - 1) / BM, (H + BN - 1) / BN, splits);
+  project_kernel<BM, BN><<<grid, BM * BN / (kTM * kTN), smem, st>>>(
+      h, wh, part, Q, Hin, H, project_chunk(Hin, splits), vec);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+cudaError_t launch_project(const float* h, const float* wh, float* part,
+                           int Q, int Hin, int H, int bm, int bn, int splits,
+                           cudaStream_t st) {
+  if (Hin <= 0 || H <= 0 || splits < 1 ||
+      (splits - 1) * project_chunk(Hin, splits) >= Hin)
+    return cudaErrorInvalidValue;   // an empty split
+  const int vec = Hin % 4 == 0 && H % 4 == 0 && aligned16(h) &&
+                  aligned16(wh) && aligned16(part);
+#define SUBGC_TILE(M, N)                                                     \
+  if (bm == M && bn == N)                                                    \
+    return launch_project_tile<M, N>(h, wh, part, Q, Hin, H, splits, vec, st);
+  SUBGC_TILE(32, 64)
+  SUBGC_TILE(64, 64)
+  SUBGC_TILE(128, 64)
+  SUBGC_TILE(32, 128)
+  SUBGC_TILE(64, 128)
+  SUBGC_TILE(128, 128)
+#undef SUBGC_TILE
+  return cudaErrorInvalidValue;
+}
+
+// ===========================================================================
+// Stage 2: attention over each row's stream for its queries.
+// ===========================================================================
+
+constexpr int kAttThreads = 256;
+constexpr int kAttWarps = kAttThreads / 32;
+constexpr int kNodeChunk = 8;     // nodes per bulk copy (one mbarrier each)
+constexpr int kMaxQueries = 16;   // queries per block, largest QMAX
+constexpr int kAttLoads = 8;      // loads of att in flight per thread
+
+// Shared memory of attend_kernel, in bytes: mbarriers, p_att [N][H],
+// ah [QMAX][H], v [H], logits [QMAX][N].
+size_t attend_smem(int qmax, int N, int H) {
+  const size_t bars = ((size_t)(N + kNodeChunk - 1) / kNodeChunk * 8 + 15)
+                      / 16 * 16;
+  return bars + sizeof(float) * ((size_t)N * H + (size_t)qmax * H + H
+                                 + (size_t)qmax * N);
+}
+
+// VEC: H and D are multiples of 4 and the streams and out are 16-byte
+// aligned, so p_att goes by bulk copy and att by float4.
+// idx == nullptr: row s reads stream s.
+template <int QMAX, bool VEC>
+__global__ void __launch_bounds__(kAttThreads)
+attend_kernel(const float* __restrict__ p_att, const float* __restrict__ att,
+              const float* __restrict__ mask, const int* __restrict__ idx,
+              const float* __restrict__ part, const float* __restrict__ bh,
+              const float* __restrict__ v, const float* __restrict__ bv,
+              float* __restrict__ out, float* __restrict__ w_out, int S,
+              int B, int G, int N, int H, int D, int splits, int rpb) {
+  extern __shared__ float4 smem4[];
+  const int nch = (N + kNodeChunk - 1) / kNodeChunk;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);
+  float* p_s = reinterpret_cast<float*>(smem4) + (nch * 2 + 3) / 4 * 4;
+  float* ah_s = p_s + (size_t)N * H;    // [QMAX][H]
+  float* v_s = ah_s + (size_t)QMAX * H; // [H]
+  float* e_s = v_s + H;                 // [QMAX][N]: logits, then weights
+  __shared__ int g_s[QMAX];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int s0 = blockIdx.x * rpb;
+  const int rows = min(rpb, S - s0);
+  const int nq = rows * B;
+  const size_t Q = (size_t)S * B;
+  const size_t q0 = (size_t)s0 * B;
+
+  if (tid < rows) {
+    // out-of-range stream indices clamp, as the JAX gather does
+    const int g = idx ? idx[s0 + tid] : s0 + tid;
+    g_s[tid] = min(max(g, 0), G - 1);
+  }
+  if (VEC && tid == 0) {
+    for (int c = 0; c < nch; ++c) mbar_init(bar + c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // ---- ah = (sum of the split partials) + bh, for the block's queries
+  for (int i = tid; i < nq * H; i += kAttThreads) {
+    const int q = i / H;
+    const int c = i - q * H;
+    const float* pq = part + (q0 + q) * H + c;
+    float a = pq[0];
+    for (int z = 1; z < splits; ++z) a += pq[z * Q * H];
+    ah_s[i] = a + bh[c];
+  }
+  for (int c = tid; c < H; c += kAttThreads) v_s[c] = v[c];
+  __syncthreads();
+
+  const float bias_v = bv[0];
+  uint32_t parity = 0;
+  // ---- the runs of rows [r0, r1) that share one stream
+  for (int r0 = 0; r0 < rows;) {
+    const int g = g_s[r0];
+    int r1 = r0 + 1;
+    while (r1 < rows && g_s[r1] == g) ++r1;
+    const int qa = r0 * B, qb = r1 * B;
+    const float* pg = p_att + (size_t)g * N * H;
+    const float* ag = att + (size_t)g * N * D;
+
+    // stage p_att[g] in shared memory (VEC: bulk copies, thread 0 issues)
+    if (VEC) {
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        for (int c = 0; c < nch; ++c) {
+          const int n0 = c * kNodeChunk;
+          const int bytes = min(kNodeChunk, N - n0) * H * 4;
+          mbar_expect_tx(bar + c, bytes);
+          bulk_copy(p_s + (size_t)n0 * H, pg + (size_t)n0 * H, bytes,
+                    bar + c);
+        }
+      }
+    } else {
+      for (int i = tid; i < N * H; i += kAttThreads) p_s[i] = pg[i];
+      __syncthreads();
+    }
+
+    // ---- e[q, j] = tanh(p[j] + ah[q]) @ v + bv: a warp per node j, every
+    // query of the run, each p element read once
+    for (int j = warp; j < N; j += kAttWarps) {
+      if (VEC) mbar_wait(bar + j / kNodeChunk, parity);
+      const float* pr = p_s + (size_t)j * H;
+      float sum[QMAX];
+#pragma unroll
+      for (int q = 0; q < QMAX; ++q) sum[q] = 0.f;
+      if (VEC) {
+        for (int c = lane * 4; c < H; c += 128) {
+          const float4 p = *reinterpret_cast<const float4*>(pr + c);
+          const float4 vc = *reinterpret_cast<const float4*>(v_s + c);
+#pragma unroll
+          for (int q = 0; q < QMAX; ++q) {
+            if (qa + q >= qb) break;
+            const float4 a =
+                *reinterpret_cast<const float4*>(ah_s + (qa + q) * H + c);
+            float s = sum[q];
+            s = fmaf(tanhf(p.x + a.x), vc.x, s);
+            s = fmaf(tanhf(p.y + a.y), vc.y, s);
+            s = fmaf(tanhf(p.z + a.z), vc.z, s);
+            s = fmaf(tanhf(p.w + a.w), vc.w, s);
+            sum[q] = s;
+          }
+        }
+      } else {
+        for (int c = lane; c < H; c += 32) {
+          const float p = pr[c];
+          const float vc = v_s[c];
+#pragma unroll
+          for (int q = 0; q < QMAX; ++q) {
+            if (qa + q >= qb) break;
+            sum[q] = fmaf(tanhf(p + ah_s[(qa + q) * H + c]), vc, sum[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < QMAX; ++q) {
+        if (qa + q >= qb) break;
+        const float e = warp_sum(sum[q]);
+        if (lane == 0) e_s[(qa + q) * N + j] = e + bias_v;
+      }
+    }
+    __syncthreads();
+
+    // ---- softmax over nodes, mask, renormalise: a warp per query
+    for (int q = qa + warp; q < qb; q += kAttWarps)
+      masked_softmax_warp(e_s + q * N, mask + (size_t)(s0 + q / B) * N,
+                          w_out + (q0 + q) * N, N, lane);
+    __syncthreads();
+
+    // ---- out[q] = w[q] @ att[g]: each att element read once for the run
+    if (VEC) {
+      const int D4 = D / 4;
+      const float4* a4 = reinterpret_cast<const float4*>(ag);
+      for (int d = tid; d < D4; d += kAttThreads) {
+        float4 acc[QMAX];
+#pragma unroll
+        for (int q = 0; q < QMAX; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j0 = 0; j0 < N; j0 += kAttLoads) {
+          float4 a[kAttLoads];   // kAttLoads loads of att in flight
+#pragma unroll
+          for (int u = 0; u < kAttLoads; ++u)
+            a[u] = j0 + u < N ? __ldg(a4 + (size_t)(j0 + u) * D4 + d)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < kAttLoads; ++u) {
+            if (j0 + u >= N) break;
+#pragma unroll
+            for (int q = 0; q < QMAX; ++q) {
+              if (qa + q >= qb) break;
+              const float wj = e_s[(qa + q) * N + j0 + u];
+              acc[q].x = fmaf(wj, a[u].x, acc[q].x);
+              acc[q].y = fmaf(wj, a[u].y, acc[q].y);
+              acc[q].z = fmaf(wj, a[u].z, acc[q].z);
+              acc[q].w = fmaf(wj, a[u].w, acc[q].w);
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < QMAX; ++q) {
+          if (qa + q >= qb) break;
+          reinterpret_cast<float4*>(out + (q0 + qa + q) * D)[d] = acc[q];
+        }
+      }
+    } else {
+      for (int d = tid; d < D; d += kAttThreads) {
+        float acc[QMAX];
+#pragma unroll
+        for (int q = 0; q < QMAX; ++q) acc[q] = 0.f;
+#pragma unroll 4
+        for (int j = 0; j < N; ++j) {
+          const float a = __ldg(ag + (size_t)j * D + d);
+#pragma unroll
+          for (int q = 0; q < QMAX; ++q) {
+            if (qa + q >= qb) break;
+            acc[q] = fmaf(e_s[(qa + q) * N + j], a, acc[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < QMAX; ++q) {
+          if (qa + q >= qb) break;
+          out[(q0 + qa + q) * D + d] = acc[q];
+        }
+      }
+    }
+    __syncthreads();   // p_s and the barriers are free for the next run
+    parity ^= 1;
+    r0 = r1;
+  }
+}
+
+template <int QMAX>
+cudaError_t launch_attend_q(const float* p_att, const float* att,
+                            const float* mask, const int* idx,
+                            const float* part, const float* bh,
+                            const float* v, const float* bv, float* out,
+                            float* w, int S, int B, int G, int N, int H,
+                            int D, int splits, int rpb, bool vec,
+                            cudaStream_t st) {
+  const size_t smem = attend_smem(QMAX, N, H);
+  const void* kernel = vec ? (const void*)attend_kernel<QMAX, true>
+                           : (const void*)attend_kernel<QMAX, false>;
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + rpb - 1) / rpb);
+  if (vec)
+    attend_kernel<QMAX, true><<<grid, kAttThreads, smem, st>>>(
+        p_att, att, mask, idx, part, bh, v, bv, out, w, S, B, G, N, H, D,
+        splits, rpb);
+  else
+    attend_kernel<QMAX, false><<<grid, kAttThreads, smem, st>>>(
+        p_att, att, mask, idx, part, bh, v, bv, out, w, S, B, G, N, H, D,
+        splits, rpb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attend(const float* p_att, const float* att,
+                          const float* mask, const int* idx,
+                          const float* part, const float* bh, const float* v,
+                          const float* bv, float* out, float* w, int S, int B,
+                          int G, int N, int H, int D, int splits, int rpb,
+                          cudaStream_t st) {
+  const int nq = rpb * B;
+  if (rpb < 1 || nq > kMaxQueries) return cudaErrorInvalidValue;
+  const bool vec = H % 4 == 0 && D % 4 == 0 && aligned16(p_att) &&
+                   aligned16(att) && aligned16(out);
+#define SUBGC_ATTEND(QM)                                                     \
+  if (nq <= QM)                                                              \
+    return launch_attend_q<QM>(p_att, att, mask, idx, part, bh, v, bv, out,  \
+                               w, S, B, G, N, H, D, splits, rpb, vec, st);
+  SUBGC_ATTEND(1)
+  SUBGC_ATTEND(2)
+  SUBGC_ATTEND(4)
+  SUBGC_ATTEND(8)
+  SUBGC_ATTEND(16)
+#undef SUBGC_ATTEND
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success).  All pointers are device pointers to
-// contiguous float32 (idx: int32) arrays; stream is a cudaStream_t.
+// Every entry returns a cudaError_t (0 on success).  All pointers are device
+// pointers to contiguous float32 (idx: int32) arrays; stream is a
+// cudaStream_t.  The plan (bm x bn tiles from {32, 64, 128} x {64, 128},
+// splits with no empty split, rows per block with rows x beams <= 16) comes
+// from subgc_tpu_torch/ops/attention.py; part is the [splits, Q, H] scratch.
+
+// ah [Q, H] = h [Q, Hin] @ wh [Hin, H] + bh: the projection stage alone.
+extern "C" int subgc_attention_project_f32(const float* h, const float* wh,
+                                           const float* bh, float* part,
+                                           float* ah, int Q, int Hin, int H,
+                                           int bm, int bn, int splits,
+                                           void* stream) {
+  if (Q <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_project(h, wh, part, Q, Hin, H, bm, bn, splits, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)Q * H;
+  project_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      part, bh, ah, Q, H, splits);
+  return (int)cudaGetLastError();
+}
+
+// h [S, B, R], p_att [G, N, H], att [G, N, D], mask [S, N], idx [S],
+// wh [R, H], bh [H], v [H, 1], bv [1] -> out [S, B, D], w [S, B, N].
 extern "C" int subgc_shared_attention_f32(
     const float* h, const float* p_att, const float* att, const float* mask,
     const int* idx, const float* wh, const float* bh, const float* v,
-    const float* bv, float* out, float* w, int S, int B, int R, int G, int N,
-    int H, int D, void* stream) {
+    const float* bv, float* part, float* out, float* w, int S, int B, int R,
+    int G, int N, int H, int D, int bm, int bn, int splits, int rpb,
+    void* stream) {
   if (S <= 0) return 0;
-  if (G <= 0 || N <= 0 || R <= 0 || H <= 0 || D <= 0)
+  if (G <= 0 || N <= 0 || R <= 0 || H <= 0 || D <= 0 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (B) {
-    case 1: return (int)launch<1>(h, p_att, att, mask, idx, wh, bh, v, bv, out, w, S, R, G, N, H, D, st);
-    case 2: return (int)launch<2>(h, p_att, att, mask, idx, wh, bh, v, bv, out, w, S, R, G, N, H, D, st);
-    case 3: return (int)launch<3>(h, p_att, att, mask, idx, wh, bh, v, bv, out, w, S, R, G, N, H, D, st);
-    case 4: return (int)launch<4>(h, p_att, att, mask, idx, wh, bh, v, bv, out, w, S, R, G, N, H, D, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t err =
+      launch_project(h, wh, part, S * B, R, H, bm, bn, splits, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_attend(p_att, att, mask, idx, part, bh, v, bv, out, w, S,
+                            B, G, N, H, D, splits, rpb, st);
 }
 
-// The number of k splits subgc_row_attention_f32 takes for R rows: enough
-// projection blocks for ~2 per SM, at least kProjMinChunk k per split, and
-// no empty split.  The caller sizes the [splits, R, H] scratch with it.
-extern "C" int subgc_row_attention_splits(int R, int Hin, int H) {
-  if (R <= 0 || Hin <= 0 || H <= 0) return 1;
-  const int tiles = ((H + kProjCols - 1) / kProjCols) *
-                    ((R + kProjRows - 1) / kProjRows);
-  int splits = (kTargetBlocks + tiles - 1) / tiles;
-  splits = std::min(splits, std::min(kProjMaxSplits, Hin / kProjMinChunk));
-  splits = std::max(splits, 1);
-  return (Hin + row_chunk(Hin, splits) - 1) / row_chunk(Hin, splits);
-}
-
-// Returns a cudaError_t (0 on success).  All pointers are device pointers to
-// contiguous float32 arrays: h [R, Hin], p_att [R, N, H], att [R, N, D],
-// mask [R, N], wh [Hin, H], bh [H], v [H, 1], bv [1]; part is scratch of
-// [splits, R, H] with splits = subgc_row_attention_splits(R, Hin, H); out
-// [R, D] and w [R, N] are written.  stream is a cudaStream_t.
+// h [R, Hin], p_att [R, N, H], att [R, N, D], mask [R, N], wh [Hin, H],
+// bh [H], v [H, 1], bv [1] -> out [R, D], w [R, N]; row r reads stream r.
 extern "C" int subgc_row_attention_f32(
     const float* h, const float* p_att, const float* att, const float* mask,
     const float* wh, const float* bh, const float* v, const float* bv,
     float* part, float* out, float* w, int R, int Hin, int N, int H, int D,
-    int splits, void* stream) {
+    int bm, int bn, int splits, void* stream) {
   if (R <= 0) return 0;
-  if (Hin <= 0 || N <= 0 || H <= 0 || D <= 0 || splits < 1 || splits > Hin)
+  if (Hin <= 0 || N <= 0 || H <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
-  const int kchunk = row_chunk(Hin, splits);
-  if ((splits - 1) * kchunk >= Hin) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-
-  const size_t proj_smem = sizeof(float) * (size_t)kchunk * kProjRows;
-  cudaError_t err = set_smem((const void*)row_project_kernel, proj_smem);
+  cudaError_t err = launch_project(h, wh, part, R, Hin, H, bm, bn, splits, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 pgrid((H + kProjCols - 1) / kProjCols,
-                   (R + kProjRows - 1) / kProjRows, splits);
-  row_project_kernel<<<pgrid, kProjCols, proj_smem, st>>>(h, wh, part, R, Hin,
-                                                          H, kchunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t row_smem = sizeof(float) * (2 * (size_t)H + N);
-  const bool vec = H % 4 == 0 && D % 4 == 0 &&
-                   ((reinterpret_cast<size_t>(p_att) |
-                     reinterpret_cast<size_t>(att) |
-                     reinterpret_cast<size_t>(out)) & 15) == 0;
-  if (vec) {
-    err = set_smem((const void*)row_attention_kernel<true>, row_smem);
-    if (err != cudaSuccess) return (int)err;
-    row_attention_kernel<true><<<R, kRowThreads, row_smem, st>>>(
-        p_att, att, mask, part, bh, v, bv, out, w, R, N, H, D, splits);
-  } else {
-    err = set_smem((const void*)row_attention_kernel<false>, row_smem);
-    if (err != cudaSuccess) return (int)err;
-    row_attention_kernel<false><<<R, kRowThreads, row_smem, st>>>(
-        p_att, att, mask, part, bh, v, bv, out, w, R, N, H, D, splits);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_attend(p_att, att, mask, nullptr, part, bh, v, bv, out,
+                            w, R, 1, R, N, H, D, splits, 1, st);
 }

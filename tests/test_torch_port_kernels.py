@@ -9,7 +9,8 @@ on a GPU machine that has only PyTorch:
 
 Without a card those tests skip; the wrapper's input checks run anywhere.
 Kernel against plain: weights within atol 1e-5, att_res within rtol 1e-4 /
-atol 1e-4 (float32 summation order).
+atol 1e-4, the projection stage alone within rtol / atol 1e-5 (float32
+summation order).
 """
 import numpy as np
 import pytest
@@ -158,3 +159,121 @@ def test_row_kernel_rejects_non_contiguous_on_card():
     x[2] = x[2].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         A.row_attention(*x)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+def _project_inputs(Q, Hin, H, seed=0):
+    rng = np.random.RandomState(seed)
+    bound = 1.0 / np.sqrt(Hin)
+    arrays = [rng.uniform(-1, 1, (Q, Hin)),
+              rng.uniform(-bound, bound, (Hin, H)),
+              rng.uniform(-bound, bound, (H,))]
+    return [torch.from_numpy(np.asarray(a, np.float32)) for a in arrays]
+
+
+# every tile edge: Q off a multiple of bm, H off bn (and off 4: 4-byte
+# copies), Hin off the 16-k slice (and off 4); split on and off
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,Hin,H,knobs", [
+    (1, 64, 32, {}),
+    (37, 130, 50, {}),
+    (37, 130, 50, dict(splits=3)),
+    (200, 1000, 512, dict(splits=1)),
+    (200, 1000, 512, dict(splits=5)),
+    (130, 1000, 200, dict(bm=128, bn=128)),
+    (70, 18, 130, dict(bm=32, bn=128, splits=2)),
+    (320, 1000, 512, {}),
+])
+def test_project_kernel_matches_plain_on_card(Q, Hin, H, knobs):
+    _cuda()
+    x = [t.cuda() for t in _project_inputs(Q, Hin, H, seed=Q)]
+    plan = A.project_plan(Q, Hin, H, **knobs)
+    before = A.PROJECT_LAUNCHES
+    ah = A.run_attention_project(*x, plan)
+    torch.cuda.synchronize()
+    assert A.PROJECT_LAUNCHES == before + 1
+    torch.testing.assert_close(ah, A.attention_project_ref(*x), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["image", "subgraph"])
+@pytest.mark.parametrize("knobs", [
+    dict(splits=1), dict(splits=4), dict(bm=32, bn=128, splits=2),
+    dict(rows_per_block=2), dict(rows_per_block=4)])
+def test_kernel_plans_match_plain_on_card(layout, knobs):
+    """Split on and off, other tiles, several rows per block (in the
+    per-sub-graph layout each row of a block is a run of its own)."""
+    _cuda()
+    x = [t.cuda() for t in _inputs(layout, S=41, B=2, G=5, R=130, H=52,
+                                   D=68, seed=len(knobs))]
+    knobs = dict(knobs)
+    rpb = knobs.pop("rows_per_block", 1)
+    plan = A.project_plan(82, 130, 52, **knobs)._replace(rows_per_block=rpb)
+    out, w = A.run_shared_attention(x, plan)
+    r_out, r_w = A.shared_attention_ref(*x)
+    torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpb", [None, 16])
+def test_kernel_image_shared_fanout_narrow_on_card(rpb):
+    """The greedy fan-out's layout at narrow widths: S=600 rows over G=2
+    images, one beam."""
+    _cuda()
+    x = [t.cuda() for t in _inputs("image", S=600, B=1, G=2, R=64, H=32,
+                                   D=64, seed=7)]
+    if rpb is None:
+        out, w = A.shared_attention(*x)
+    else:
+        plan = A.attention_plan(600, 1, 2, 64, 32)._replace(
+            rows_per_block=rpb)
+        out, w = A.run_shared_attention(x, plan)
+    r_out, r_w = A.shared_attention_ref(*x)
+    torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_unsorted_and_out_of_range_idx_on_card():
+    """Rows of one block that read different streams (runs), and stream
+    indices outside [0, G) that clamp."""
+    _cuda()
+    x = [t.cuda() for t in _inputs("image", S=64, B=1, G=5, seed=8)]
+    rng = np.random.RandomState(8)
+    idx = rng.randint(-2, 8, 64).astype(np.int32)
+    x[4] = torch.from_numpy(idx).cuda()
+    plan = A.attention_plan(64, 1, 5, 64, 32)._replace(rows_per_block=8)
+    out, w = A.run_shared_attention(x, plan)
+    r_out, r_w = A.shared_attention_ref(*x)
+    torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["shared", "row", "project"])
+def test_kernels_repeat_bitwise_on_card(op):
+    """Two launches on the same inputs give the same bits: the split
+    partials are summed in a fixed order, with no atomics."""
+    _cuda()
+    if op == "shared":
+        x = [t.cuda() for t in _inputs("image", S=160, B=2, G=16, R=1000,
+                                       H=512, D=1000, seed=9)]
+        fn = A.shared_attention
+    elif op == "row":
+        x = [t.cuda() for t in _row_inputs(R=160, Hin=1000, H=512, D=1000,
+                                           seed=9)]
+        fn = A.row_attention
+    else:
+        x = [t.cuda() for t in _project_inputs(320, 1000, 512, seed=9)]
+        fn = A.attention_project
+    first, second = fn(*x), fn(*x)
+    torch.cuda.synchronize()
+    for a, b in zip(first if op != "project" else [first],
+                    second if op != "project" else [second]):
+        assert torch.equal(a, b)

@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Time block shapes of the port's attention kernel on one NVIDIA card.
+"""Time launch plans of the port's attention kernels on one NVIDIA card.
 
-    python3 tools/sweep_attention_tiles.py
+    python3 tools/sweep_attention_tiles.py [TABLE.json]
 
-Compiles ``subgc_tpu_torch/ops/csrc/attention.cu`` once per (threads per
-block, queries per block, unroll of the projection loop) with
-``-DSUBGC_ATT_THREADS/-DSUBGC_ATT_QUERIES/-DSUBGC_ATT_UNROLL`` (all ``nvcc``
-runs started together), checks each build against the plain
-PyTorch version, and prints the CUDA-event median time of each at the
-inputs ``chip_smoke.py`` uses: the main path's 16-image batch (S=160) and a
-96-image batch (S=960), both beam layouts.  The last line of the output is
-the whole table as one JSON object.
+The plan's knobs are arguments of the kernels' C entry points, so one build
+of ``subgc_tpu_torch/ops/csrc/attention.cu`` serves every variant:
+
+* the projection's tiles, bm x bn queries x columns (bm in 32, 64, 128;
+  bn in 64, 128), and its k split (1, 2, 3, 4, 6, 8; trimmed so that no
+  split is empty), at the default rows per block;
+* rows per attention block (queries per block = rows x beams <= 16), at the
+  default projection, where rows share streams.
+
+Each variant is checked against the plain PyTorch version (weights atol
+1e-5, att_res rtol / atol 1e-4) and timed (CUDA-event median, warm L2) at
+the inputs ``chip_smoke.py`` uses: both Kar beam layouts at S=160 and 960,
+the M-RNN fan-out (S=2000 rows over 2 images, one beam) and the per-row
+kernel at R=160 and 960.  Prints the default plan's time and the fastest
+plan per shape; the last line is the fastest plan per shape as one JSON
+object.  With a path, the whole table is also written there as JSON.
 """
-import ctypes
 import json
 import os
 import subprocess
 import sys
-import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -27,51 +33,41 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from subgc_tpu_torch import build_configs, params_from_numpy  # noqa: E402
 from subgc_tpu_torch.models.params import init_params_numpy  # noqa: E402
-from subgc_tpu_torch.ops import _build  # noqa: E402
 from subgc_tpu_torch.ops import attention as A  # noqa: E402
 
-VARIANTS = [(t, q, u) for t in (256, 512, 1024) for q in (4, 8, 16)
-            for u in (4, 16)]
-SHAPES = [("image", 160, 16), ("subgraph", 160, 160), ("image", 960, 96),
-          ("subgraph", 960, 960)]
+# (label, layout, S or R, G, beams)
+SHAPES = [("Kar image S=160", "image", 160, 16, 2),
+          ("Kar subgraph S=160", "subgraph", 160, 160, 2),
+          ("Kar image S=960", "image", 960, 96, 2),
+          ("Kar subgraph S=960", "subgraph", 960, 960, 2),
+          ("fan-out S=2000", "image", 2000, 2, 1),
+          ("row R=160", "row", 160, 160, 1),
+          ("row R=960", "row", 960, 960, 1)]
+SPLITS = (1, 2, 3, 4, 6, 8)
 
 
-def build_all(tmp):
-    src = os.path.join(_build.CSRC, "attention.cu")
-    procs = {}
-    for t, q, u in VARIANTS:
-        out = os.path.join(tmp, f"att_{t}_{q}_{u}.so")
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS,
-               f"-DSUBGC_ATT_THREADS={t}", f"-DSUBGC_ATT_QUERIES={q}",
-               f"-DSUBGC_ATT_UNROLL={u}", "-o", out, src]
-        procs[(t, q, u)] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                               stderr=subprocess.STDOUT,
-                                               text=True))
-    fns = {}
-    for key, (out, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        fn = ctypes.CDLL(out).subgc_shared_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[key] = fn
-    return fns
+def shape_inputs(params, layout, S, G, beams, seed):
+    if layout != "row":
+        return cs.attention_inputs(params, layout, S, G, seed, beams)
+    x = cs.attention_inputs(params, "subgraph", S, S, seed, 1)
+    return [x[0][:, 0].contiguous(), *x[1:4], *x[5:]]
 
 
-def launcher(fn, x):
-    S, B, R, G, N, H, D = A._check(*x)
-    out = torch.empty((S, B, D), device="cuda")
-    w = torch.empty((S, B, N), device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run():
-        err = fn(*(t.data_ptr() for t in x), out.data_ptr(), w.data_ptr(),
-                 S, B, R, G, N, H, D, stream)
-        if err:
-            raise RuntimeError(f"cudaError_t {err}")
-    return run, out, w
+def plans(S, G, beams, Hin, H):
+    default = A.attention_plan(S, beams, G, Hin, H)
+    seen = {default}
+    for bm in A.TILE_ROWS:
+        for bn in A.TILE_COLS:
+            for splits in SPLITS:
+                p = A.project_plan(S * beams, Hin, H, bm=bm, bn=bn,
+                                   splits=splits)._replace(
+                    rows_per_block=default.rows_per_block)
+                seen.add(p)
+    rpb = 1
+    while rpb * beams <= A.MAX_QUERIES_PER_BLOCK and G < S:
+        seen.add(default._replace(rows_per_block=rpb))
+        rpb *= 2
+    return default, sorted(seen)
 
 
 def main():
@@ -85,31 +81,42 @@ def main():
     print(card)
     cfg, _, _ = build_configs("Sub_GC_Kar")
     params = params_from_numpy(init_params_numpy(cfg, seed=0)[0], "cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        fns = build_all(tmp)
-        rows = []
-        for layout, S, G in SHAPES:
-            x = cs.attention_inputs(params, layout, S, G, seed=0)
-            r_out, r_w = A.shared_attention_ref(*x)
-            plain = cs.cuda_ms(lambda: A.shared_attention_ref(*x))
-            for key, fn in fns.items():
-                run, out, w = launcher(fn, x)
-                run()
-                torch.cuda.synchronize()
-                ok = bool((w - r_w).abs().max() <= 1e-5 and (
-                    (out - r_out).abs()
-                    <= 1e-4 + 1e-4 * r_out.abs()).all())
-                ms = cs.cuda_ms(run)
-                rows.append({"layout": layout, "S": S, "G": G,
-                             "threads": key[0], "queries": key[1],
-                             "unroll": key[2], "ms": ms, "plain_ms": plain, "ok": ok})
-                print(f"{layout:8s} S={S:4d} threads={key[0]:4d} "
-                      f"queries={key[1]:2d} unroll={key[2]:2d}: "
-                      f"{ms:.4f} ms (plain "
-                      f"{plain:.4f} ms) {'ok' if ok else 'WRONG'}")
-    print(json.dumps({"card": card, "rows": rows}))
+    rows, best = [], {}
+    for label, layout, S, G, beams in SHAPES:
+        x = shape_inputs(params, layout, S, G, beams, seed=0)
+        Hin, H = x[-4].shape
+        ref_fn = A.row_attention_ref if layout == "row" \
+            else A.shared_attention_ref
+        run_fn = A.run_row_attention if layout == "row" \
+            else A.run_shared_attention
+        r_out, r_w = ref_fn(*x)
+        default, variants = plans(S, G, beams, Hin, H)
+        for plan in variants:
+            out, w = run_fn(x, plan)
+            torch.cuda.synchronize()
+            ok = bool((w - r_w).abs().max() <= 1e-5 and (
+                (out - r_out).abs() <= 1e-4 + 1e-4 * r_out.abs()).all())
+            ms = cs.cuda_ms(lambda: run_fn(x, plan))
+            row = {"shape": label, **plan._asdict(), "ms": ms, "ok": ok,
+                   "default": plan == default}
+            rows.append(row)
+            print(f"{label:20s} {plan}: {ms:.4f} ms"
+                  f"{' (default)' if plan == default else ''}"
+                  f"{'' if ok else ' WRONG'}")
+        mine = [r for r in rows if r["shape"] == label and r["ok"]]
+        best[label] = min(mine, key=lambda r: r["ms"])
+        dflt = next(r for r in mine if r["default"])
+        print(f"{label}: default {dflt['ms']:.4f} ms, fastest "
+              f"{best[label]['ms']:.4f} ms at bm={best[label]['bm']} "
+              f"bn={best[label]['bn']} splits={best[label]['splits']} "
+              f"rows_per_block={best[label]['rows_per_block']}")
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump({"card": card, "rows": rows, "fastest": best}, f,
+                      indent=1)
+    print(json.dumps({"card": card, "fastest": best}))
     if not all(r["ok"] for r in rows):
-        sys.exit("a block shape disagrees with the plain version")
+        sys.exit("a plan disagrees with the plain version")
 
 
 if __name__ == "__main__":
