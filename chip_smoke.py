@@ -41,7 +41,26 @@ Phases (any failure exits non-zero before the last line is printed):
    one image: identical keep sets and >= 95% identical captions;
 9. Sub_GC_S_MRNN (top-k sampling on the same fan-out): at the_k=1 the
    tokens equal phase 8's greedy tokens exactly; at the_k=3 every caption is
-   non-empty and every recorded logprob is finite and <= 0.
+   non-empty and every recorded logprob is finite and <= 0;
+10. the beam-shared kernel at 3 beams in the per-sub-graph layout (S=1 and
+    S=32 rows), Full_GC_Kar's shape, against its plain version (same
+    tolerances);
+11. Full_GC_Kar (GCN with BatchNorm, 4 layers, residual 1, no sGPN, beam 3)
+    on 32 images through ``encode_image`` + ``beam_search``, one image at a
+    time, with BatchNorm running statistics drawn from the seed: the
+    beam-shared kernel must launch exactly 32 x seq_length times (S=1 row
+    of 3 beams each) and the per-row kernel never; against the CPU on every
+    image: >= 95% identical captions;
+12. Sub_GC_Flickr_CTL (controllability: one sub-graph per region set,
+    built greedily by ``data/sct.py``, no NMS, region-set order) on 64
+    images with 2-5 region sets each, bucket 32, in 16-image batches:
+    launches exactly dispatches x seq_length, every image's
+    ``sorted_subgraph_ind`` equal to ``arange(region sets)``; against the
+    CPU on the first batch: identical sub-graph sets and >= 95% identical
+    captions;
+13. Sub_GC_Sup_Flickr_CTL (GT sub-graphs looked up by seed nodes, the
+    Sup. model without an sGPN scorer) on the same kind of images: every
+    score exactly 1, and phase 12's checks.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Needs no network and imports no jax.
@@ -62,6 +81,9 @@ BUCKET = 128
 FANOUT_IMAGES = 4        # the M-RNN fan-out: 2 dispatches of 2 images
 FANOUT_BATCH = 2
 FANOUT_BUCKET = 1024
+FULLGC_IMAGES = 32       # Full_GC_Kar, decoded one image at a time
+SCT_IMAGES = 64          # the CTL presets: 4 dispatches of 16 images
+SCT_BUCKET = 32          # SCTLoader's default bucket
 F32_PEAK = 67e12         # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM device memory, bytes/s
 
@@ -512,6 +534,201 @@ def run_topk(params, state, vocab, examples, greedy_preds):
           f"recorded logprobs finite and <= 0")
 
 
+def make_sct_examples(cfg, n_images, bucket, seed, gt=False):
+    """Synthetic test images with 2-5 region sets each, made from the
+    image's own detector boxes (tests/test_cli_sct.py), turned into
+    sub-graphs by the port's ``data/sct.py``: greedily, or (``gt``) by
+    look-up among five GT sub-graphs whose seed boxes the region sets are,
+    so the look-up succeeds (tests/test_gt_subg.py)."""
+    from subgc_tpu_torch.data.dataset import ImageInfo, TestExample
+    from subgc_tpu_torch.data.sct import sct_subgraph_set
+    from subgc_tpu_torch.graph import make_scene_graph
+    rng = np.random.RandomState(seed)
+    N, K = cfg.obj_num, cfg.rel_num
+    n, k = N - 1, K - 1                  # 36 detections, 64 relations
+    out = []
+    for i in range(n_images):
+        obj_dist = rng.rand(n, cfg.num_obj_classes).astype("f")
+        rel_ind = rng.randint(0, n, (k, 2)).astype(np.int64)
+        graph = make_scene_graph(
+            rng.rand(n, cfg.att_feat_size).astype("f"), obj_dist, rel_ind,
+            rng.rand(k, cfg.num_rel_classes).astype("f"), N, K)
+        boxes = rng.rand(n, 4).astype("f") * 296
+        boxes[:, 2:] += boxes[:, :2]
+        n_sets = rng.randint(2, 6)
+        gt_masks = None
+        if gt:
+            gt_masks = []
+            for _ in range(5):
+                nodes = rng.choice(n, rng.randint(2, 8), replace=False)
+                obj_mask = np.zeros(n, np.int64)
+                obj_mask[nodes] = 1
+                pred_mask = (np.isin(rel_ind[:, 0], nodes)
+                             & np.isin(rel_ind[:, 1], nodes)).astype(np.int64)
+                gt_masks.append([None, obj_mask, pred_mask, None,
+                                 nodes[:max(1, len(nodes) // 2)]])
+            groups = [boxes[np.unique(gt_masks[g][4])] for g in range(n_sets)]
+        else:
+            groups = [boxes[rng.choice(n, rng.randint(1, 3), replace=False)]
+                      for _ in range(n_sets)]
+        sets = np.zeros((n_sets, max(len(g) for g in groups), 5), np.float32)
+        for g_i, g in enumerate(groups):
+            sets[g_i, :len(g), :4] = g
+            sets[g_i, :len(g), 4] = 1
+        subs, n_sub = sct_subgraph_set(sets, boxes, obj_dist.argmax(1),
+                                       rel_ind, N, K, bucket, gt_masks)
+        out.append(TestExample(graph=graph, subs=subs, n_subgraphs=n_sub,
+                               info=ImageInfo(ix=i, id=i, file_path=""),
+                               gts=np.zeros((0, cfg.seq_length), np.int64),
+                               sg_raw={"boxes": boxes}))
+    return out
+
+
+def decode_fullgc(params, state, examples, cfg, ecfg, device):
+    """Full_GC_Kar through the port's entry points, one image at a time:
+    ``encode_image`` (no sub-graphs) + ``beam_search``.  Returns the best
+    beam's tokens [images, T] on the host."""
+    import torch
+    from subgc_tpu_torch import beam_search, encode_image, to_device
+    seqs = []
+    with torch.no_grad():
+        for ex in examples:
+            enc = encode_image(params, state, to_device(ex.graph, device),
+                               None, cfg, ecfg)
+            seqs.append(beam_search(params, enc.feats, cfg, ecfg).seq[0])
+    return torch.stack(seqs).cpu().numpy()
+
+
+def bn_state_from_seed(state, seed):
+    """The GCN BatchNorm running statistics drawn away from (0, 1), as
+    tests/test_fullgc_parity.py sets them: mean ~N(0, 0.05), var
+    ~U(0.8, 1.2)."""
+    rng = np.random.RandomState(seed)
+    return {**state, "gcn_bn": [
+        [{"mean": rng.normal(0, 0.05, u["mean"].shape).astype("f"),
+          "var": rng.uniform(0.8, 1.2, u["var"].shape).astype("f")}
+         for u in layer] for layer in state["gcn_bn"]]}
+
+
+def run_fullgc(vocab):
+    """Phase 11: Full_GC_Kar on the card and on the CPU.  Returns the
+    beam-shared kernel's launches."""
+    import torch
+    from subgc_tpu_torch import (build_configs, decode_sequence,
+                                 params_from_numpy)
+    from subgc_tpu_torch.models.params import init_params_numpy
+    from subgc_tpu_torch.ops import attention as A
+    cfg, ecfg, _ = build_configs("Full_GC_Kar")
+    params_np, state_np = init_params_numpy(cfg, seed=0)
+    state_np = bn_state_from_seed(state_np, seed=11)
+    params, state = (params_from_numpy(t, "cuda")
+                     for t in (params_np, state_np))
+    examples = make_examples(cfg, FULLGC_IMAGES, 1, seed=3)
+    dev = torch.device("cuda")
+    decode_fullgc(params, state, examples[:2], cfg, ecfg, dev)   # warm-up
+    torch.cuda.synchronize()
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    seqs = decode_fullgc(params, state, examples, cfg, ecfg, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.LAUNCHES
+    if launches != FULLGC_IMAGES * cfg.seq_length or A.ROW_LAUNCHES:
+        fail(f"Full-GC path: beam-shared kernel launched {launches} times, "
+             f"row kernel {A.ROW_LAUNCHES}; expected {FULLGC_IMAGES} images "
+             f"x {cfg.seq_length} steps and 0")
+    check_project_launches("Full-GC path", launches)
+    caps = decode_sequence(vocab, seqs)
+    if len(caps) != FULLGC_IMAGES or not all(isinstance(c, str)
+                                             for c in caps):
+        fail(f"Full-GC path: {len(caps)} captions for {FULLGC_IMAGES} images")
+    print(f"Full-GC path (Full_GC_Kar, beam {ecfg.beam_size}): "
+          f"{FULLGC_IMAGES} images, one at a time, in {wall:.3f} s = "
+          f"{FULLGC_IMAGES / wall:.1f} captions/s, "
+          f"{1e3 * wall / FULLGC_IMAGES:.2f} ms per image; beam-shared "
+          f"kernel launches {launches}")
+
+    t0 = time.perf_counter()
+    cpu = decode_fullgc(*(params_from_numpy(t, "cpu")
+                          for t in (params_np, state_np)),
+                        examples, cfg, ecfg, torch.device("cpu"))
+    n_same = sum(a == b for a, b in zip(caps, decode_sequence(vocab, cpu)))
+    print(f"Full-GC card vs cpu ({time.perf_counter() - t0:.1f} s on cpu): "
+          f"{n_same}/{FULLGC_IMAGES} captions identical")
+    if n_same < 0.95 * FULLGC_IMAGES:
+        fail(f"Full-GC: only {n_same}/{FULLGC_IMAGES} captions agree between "
+             f"card and cpu")
+    return launches
+
+
+def check_sct_predictions(preds, examples, label, ones):
+    if len(preds) != len(examples):
+        fail(f"{label}: {len(preds)} predictions for {len(examples)} images")
+    for p, ex in zip(preds, examples):
+        ind = np.asarray(p["sorted_subgraph_ind"])
+        s = np.asarray(p["subgraph_score"])
+        if not np.array_equal(ind, np.arange(ex.n_subgraphs)) \
+                or len(p["caption"]) != ex.n_subgraphs:
+            fail(f"{label}: image {p['image_id']} has sub-graphs {ind} and "
+                 f"{len(p['caption'])} captions for {ex.n_subgraphs} region "
+                 f"sets")
+        if ones and not (s == 1.0).all():
+            fail(f"{label}: image {p['image_id']} scores {s}, expected 1")
+        if not (np.isfinite(s).all() and (s > 0).all() and (s <= 1).all()):
+            fail(f"{label}: image {p['image_id']}: bad scores {s}")
+
+
+def run_sct(preset, params_np, state_np, vocab, seed):
+    """Phases 12-13: a controllability preset on the card and, on the first
+    batch, on the CPU.  Returns the beam-shared kernel's launches."""
+    import torch
+    from subgc_tpu_torch import build_configs, params_from_numpy, \
+        run_test_split
+    from subgc_tpu_torch.ops import attention as A
+    cfg, ecfg, _ = build_configs(preset,
+                                 eval=dict(max_subgraph_bucket=SCT_BUCKET))
+    gt = ecfg.use_gt_subg
+    params, state = (params_from_numpy(t, "cuda")
+                     for t in (params_np, state_np))
+    examples = make_sct_examples(cfg, SCT_IMAGES, SCT_BUCKET, seed, gt=gt)
+    loader = MemoryLoader(examples)
+    run_test_split(params, state, loader, cfg, ecfg, vocab,
+                   num_images=BATCH_IMAGES, verbose=False,
+                   batch_images=BATCH_IMAGES, device="cuda")    # warm-up
+    torch.cuda.synchronize()
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, cfg, ecfg, vocab, verbose=False,
+        batch_images=BATCH_IMAGES, device="cuda")
+    launches = A.LAUNCHES
+    n_dispatch = -(-SCT_IMAGES // BATCH_IMAGES)
+    if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
+        fail(f"{preset}: beam-shared kernel launched {launches} times, row "
+             f"kernel {A.ROW_LAUNCHES}; expected {n_dispatch} dispatches x "
+             f"{cfg.seq_length} steps and 0")
+    check_project_launches(preset, launches)
+    check_sct_predictions(preds, examples, preset, ones=gt)
+    print(f"{preset}: {SCT_IMAGES} images, {n_caps} captions (bucket "
+          f"{SCT_BUCKET}, {BATCH_IMAGES * SCT_BUCKET} rows x "
+          f"{ecfg.beam_size} beams a dispatch) in {wall:.3f} s = "
+          f"{n_caps / wall:.1f} captions/s, {1e3 * wall / n_dispatch:.2f} ms "
+          f"per {BATCH_IMAGES}-image batch; beam-shared kernel launches "
+          f"{launches}")
+
+    t0 = time.perf_counter()
+    cpu_preds, _, _ = run_test_split(
+        *(params_from_numpy(t, "cpu") for t in (params_np, state_np)),
+        loader, cfg, ecfg, vocab, num_images=BATCH_IMAGES, verbose=False,
+        batch_images=BATCH_IMAGES, device="cpu")
+    n_same, n_total = compare_card_cpu(preds[:BATCH_IMAGES], cpu_preds)
+    print(f"{preset} card vs cpu ({time.perf_counter() - t0:.1f} s on cpu): "
+          f"{n_same}/{n_total} captions identical, sub-graph sets identical")
+    if n_same < 0.95 * n_total:
+        fail(f"{preset}: only {n_same}/{n_total} captions agree between card "
+             f"and cpu")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -621,12 +838,24 @@ def main():
         params, cpu_params, state, vocab)
     run_topk(params, state, vocab, fan_examples, greedy_preds)
 
+    # ---- 10-13. 3 beams; Full_GC_Kar; the controllability presets
+    checks += [check_attention(params, "subgraph", S, S, seed=20 + S,
+                               beams=3) for S in (1, 32)]
+    fullgc_launches = run_fullgc(vocab)
+    ctl_launches = run_sct("Sub_GC_Flickr_CTL", params_np, state, vocab,
+                           seed=21)
+    sup_cfg, _, _ = build_configs("Sub_GC_Sup_Flickr_CTL")
+    sup_launches = run_sct("Sub_GC_Sup_Flickr_CTL",
+                           *init_params_numpy(sup_cfg, seed=1), vocab,
+                           seed=22)
+
     kernels = [{
         "name": "shared_attention",
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
-        "launches": launches + fan_launches,
+        "launches": (launches + fan_launches + fullgc_launches
+                     + ctl_launches + sup_launches),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_check["ms"],
         "plain_ms": main_check["plain_ms"],

@@ -1,0 +1,216 @@
+"""Inference CLI — `python -m subgc_tpu_torch.cli.test <MODEL_TYPE> [flags]`.
+
+The port's counterpart of ``subgc_tpu/cli/test.py``, with the same flags
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path):
+decode the test split with the preset's beam / NMS / sampling settings and
+write ``captions_<tag>.npy`` (``ctl_captions_<tag>.npy`` for the SCT
+presets), ``grounding_file.json`` with ``--return_att 1`` and
+``vis/vis.json`` with ``--dump_json 1``.  Configs resolve in the order
+preset, then the checkpoint's ``infos.json``, then flags; the weights load
+from the checkpoint's ``model.npz``.
+
+Flags whose code the port does not have yet stop with a message naming the
+ROADMAP item: ``--language_eval``, ``--only_sent_eval`` (the scorers),
+``--verbose_loss`` (training), ``--n_devices`` > 1 and ``--shard_subgraphs``
+(parallelism), ``--packed_path`` (packed shards) and ``--group_size`` > 1
+(diverse beam groups).  Full_GC_Kar has no batched route (nor in the JAX
+CLI), so ``run_test_split`` refuses it: decode it with
+``models.subgc.encode_image`` + ``beam_search``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("model_type", nargs="?", default="Sub_GC_Kar")
+    p.add_argument("--checkpoint_path", type=str, required=True,
+                   help="directory with model.npz + infos.json")
+    p.add_argument("--iter_tag", type=str, default=None,
+                   help="tag for captions_<tag>.npy (default: ckpt iter)")
+    p.add_argument("--num_images", type=int, default=-1)
+    p.add_argument("--batch_images", type=int, default=16)
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="not ported yet (ROADMAP item 13)")
+    p.add_argument("--shard_subgraphs", action="store_true",
+                   help="not ported yet (ROADMAP item 13)")
+    p.add_argument("--bucket", type=int, default=None,
+                   help="static sub-graph bucket (default: preset)")
+    p.add_argument("--beam_size", type=int, default=None)
+    p.add_argument("--gpn_nms_thres", type=float, default=None)
+    p.add_argument("--gpn_max_subg", type=int, default=None)
+    p.add_argument("--language_eval", type=int, default=0,
+                   help="not ported yet (ROADMAP item 14)")
+    p.add_argument("--only_sent_eval", type=int, default=0,
+                   help="not ported yet (ROADMAP item 14)")
+    p.add_argument("--oracle_num", type=int, default=1)
+    p.add_argument("--return_att", type=int, default=None)
+    p.add_argument("--use_topk_sampling", type=int, default=None)
+    p.add_argument("--topk_temp", type=float, default=None)
+    p.add_argument("--the_k", type=int, default=None)
+    p.add_argument("--group_size", type=int, default=None,
+                   help="> 1 not ported yet (ROADMAP item 16)")
+    p.add_argument("--diversity_lambda", type=float, default=None)
+    p.add_argument("--decoding_constraint", type=int, default=None)
+    p.add_argument("--length_penalty", type=str, default=None)
+    p.add_argument("--remove_bad_endings", type=int, default=None)
+    p.add_argument("--input_json", type=str, default=None)
+    p.add_argument("--input_label_h5", type=str, default=None)
+    p.add_argument("--sg_dir", type=str, default=None)
+    p.add_argument("--mask_dir", type=str, default=None)
+    p.add_argument("--packed_path", type=str, default=None,
+                   help="not ported yet (ROADMAP item 14)")
+    p.add_argument("--annotations_json", type=str, default=None,
+                   help="GT annotation json for language eval (not ported "
+                        "yet, ROADMAP item 14)")
+    p.add_argument("--sct_dict", type=str,
+                   default="data/sct_dict_test_grouped_gt_box.npy",
+                   help="grouped GT region sets for SCT presets")
+    p.add_argument("--img_wh", type=str, default="data/flickr30k_img_wh.npy",
+                   help="{img_id: (w,h)} table for SCT/grounding presets")
+    p.add_argument("--split", type=str, default="test")
+    p.add_argument("--seed", type=int, default=2019)
+    p.add_argument("--verbose_beam", type=int, default=None,
+                   help="print every beam of one random kept sub-graph "
+                        "per image (reference default 1; here 0)")
+    p.add_argument("--verbose_loss", type=int, default=0,
+                   help="not ported yet (ROADMAP item 9)")
+    p.add_argument("--dump_json", type=int, default=0,
+                   help="write vis/vis.json with the best caption per "
+                        "image")
+    p.add_argument("--dump_path", type=int, default=0,
+                   help="include each image's file_path in vis/vis.json")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args):
+    refused = [
+        (args.language_eval, "--language_eval", "14 (scorers)"),
+        (args.only_sent_eval, "--only_sent_eval", "14 (scorers)"),
+        (args.verbose_loss, "--verbose_loss", "9 (training)"),
+        (args.n_devices is not None and args.n_devices > 1, "--n_devices",
+         "13 (parallelism)"),
+        (args.shard_subgraphs, "--shard_subgraphs", "13 (parallelism)"),
+        (args.packed_path, "--packed_path", "14 (packed shards)"),
+        (args.group_size is not None and args.group_size > 1,
+         "--group_size > 1", "16 (diverse beam groups)"),
+    ]
+    for on, flag, item in refused:
+        if on:
+            raise SystemExit(f"{flag} is not ported to subgc_tpu_torch yet "
+                             f"(ROADMAP item {item})")
+
+
+def _load_npy_dict(path):
+    return np.load(path, allow_pickle=True, encoding="latin1").tolist()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    from ..config import ModelConfig, build_configs, config_from_json
+    from ..data.dataset import EvalLoader
+    from ..device import resolve_device
+    from ..eval.runner import run_test_split, save_predictions
+    from ..models.params import load_model_npz, params_from_numpy
+
+    # preset < checkpoint infos < CLI flags
+    mcfg, ecfg, dcfg = build_configs(args.model_type, mode="test")
+    infos_path = os.path.join(args.checkpoint_path, "infos.json")
+    infos = {}
+    if os.path.exists(infos_path):
+        with open(infos_path) as f:
+            infos = json.load(f)
+        mcfg = config_from_json(ModelConfig, infos["model_config"])
+        if infos.get("model_type") and infos["model_type"] != args.model_type:
+            print(f"note: checkpoint was trained as {infos['model_type']}, "
+                  f"evaluating as {args.model_type}")
+    for k in ["beam_size", "gpn_nms_thres", "gpn_max_subg", "return_att",
+              "use_topk_sampling", "oracle_num", "topk_temp", "the_k",
+              "group_size", "diversity_lambda", "decoding_constraint",
+              "length_penalty", "remove_bad_endings", "verbose_beam"]:
+        v = getattr(args, k)
+        if v is not None:
+            ecfg = ecfg.replace(**{k: bool(v) if k in ("return_att",
+                                                       "use_topk_sampling",
+                                                       "remove_bad_endings")
+                                   else v})
+    for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir"]:
+        if getattr(args, k) is not None:
+            dcfg = dcfg.replace(**{k: getattr(args, k)})
+    dev = resolve_device(args.device)
+
+    bucket = args.bucket or ecfg.max_subgraph_bucket
+    if ecfg.sct:
+        from ..data.sct import SCTLoader
+        loader = SCTLoader(mcfg, dcfg, _load_npy_dict(args.sct_dict),
+                           _load_npy_dict(args.img_wh),
+                           use_greedy_subg=ecfg.use_greedy_subg,
+                           use_gt_subg=ecfg.use_gt_subg, bucket=bucket,
+                           seed=args.seed)
+    else:
+        loader = EvalLoader(mcfg, dcfg, bucket=bucket, seed=args.seed)
+    mcfg = mcfg.replace(vocab_size=loader.vocab_size,
+                        seq_length=loader.seq_length)
+    iter_tag = args.iter_tag or str(infos.get("iter", "0"))
+
+    blob = load_model_npz(os.path.join(args.checkpoint_path, "model.npz"))
+    params = params_from_numpy(blob["params"], dev)
+    state = params_from_numpy(blob["state"], dev)
+
+    collector = None
+    if ecfg.return_att and os.path.exists("data/gvd_all_dict.npy"):
+        from ..eval.grounding import GroundingCollector
+        gvd = _load_npy_dict("data/gvd_all_dict.npy")
+        img_wh = _load_npy_dict("data/flickr30k_img_wh.npy") \
+            if os.path.exists("data/flickr30k_img_wh.npy") else {}
+        rr_path = os.path.join(args.checkpoint_path,
+                               "consensus_rerank_ind.npy")
+        rr = np.load(rr_path, allow_pickle=True).tolist() \
+            if os.path.exists(rr_path) else None
+        collector = GroundingCollector(
+            gvd["wd_to_lemma"], gvd["lemma_det_id_dict"],
+            gvd["det_id_to_det_wd"], img_wh, rerank_ind=rr)
+
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, mcfg, ecfg, loader.vocab, split=args.split,
+        num_images=args.num_images, batch_images=args.batch_images,
+        device=dev, collect_grounding=collector)
+    path = save_predictions(preds, args.checkpoint_path, iter_tag,
+                            sct=ecfg.sct)
+    print(f"decoded {n_caps} captions for {len(preds)} images in "
+          f"{wall:.1f}s on {dev} -> {path}")
+    if collector is not None:
+        gpath = os.path.join(args.checkpoint_path, "grounding_file.json")
+        collector.save(gpath)
+        print(f"grounding material -> {gpath}")
+
+    if args.dump_json:
+        # vis/vis.json: best caption per image (+ file_path with
+        # --dump_path), the reference's test.py:48-50 artifact
+        id_to_path = {img["id"]: img.get("file_path", "")
+                      for img in loader.ds.images}
+        vis = []
+        for pr in preds:
+            entry = {"image_id": pr["image_id"],
+                     "caption": pr["caption"][0] if pr["caption"] else ""}
+            if args.dump_path:
+                entry["file_path"] = id_to_path.get(pr["image_id"], "")
+            vis.append(entry)
+        os.makedirs("vis", exist_ok=True)
+        with open(os.path.join("vis", "vis.json"), "w") as f:
+            json.dump(vis, f)
+        print(f"predictions -> vis/vis.json ({len(vis)} images)")
+    return {"captions_path": path, "scores": None, "iter_tag": iter_tag}
+
+
+if __name__ == "__main__":
+    main()

@@ -46,9 +46,12 @@ class TestExample(NamedTuple):
 
 
 class EvalLoader:
-    """Enumerates ALL sampled sub-graphs per image (dataloader_test.py:224-230)."""
+    """Enumerates ALL sampled sub-graphs per image (dataloader_test.py:224-230).
 
-    def __init__(self, mcfg: ModelConfig, dcfg: DataConfig, bucket: int = 1024):
+    ``seed`` is the JAX loaders' argument; the test loaders draw nothing."""
+
+    def __init__(self, mcfg: ModelConfig, dcfg: DataConfig, bucket: int = 1024,
+                 seed: int = 2019):
         if dcfg.packed_path:
             raise NotImplementedError("packed shards are not ported yet")
         self.mcfg = mcfg
@@ -63,6 +66,21 @@ class EvalLoader:
     @property
     def vocab(self):
         return self.ds.ix_to_word
+
+    @property
+    def vocab_size(self):
+        return self.ds.vocab_size
+
+    @property
+    def seq_length(self):
+        return self.ds.seq_length
+
+    def _scene_graph(self, img_id):
+        """(padded SceneGraph, raw npz dict) of one image."""
+        sg = self.sg.get(img_id)
+        return make_scene_graph(sg["object_fmap"], sg["object_dist"],
+                                sg["rel_ind"], sg["pred_dist"],
+                                self.mcfg.obj_num, self.mcfg.rel_num), sg
 
     def __len__(self):
         return len(self.split_ix["test"])
@@ -92,10 +110,7 @@ class EvalLoader:
                 mask_info[5 + s], m.obj_num, m.rel_num)
             valid[s] = True
 
-        sg = self.sg.get(img_id)
-        graph = make_scene_graph(sg["object_fmap"], sg["object_dist"],
-                                 sg["rel_ind"], sg["pred_dist"],
-                                 m.obj_num, m.rel_num)
+        graph, sg = self._scene_graph(img_id)
         subs = SubgraphSet(obj_ind=obj_ind, pred_ind=pred_ind,
                            att_mask=att_mask, valid=valid)
         return TestExample(graph=graph, subs=subs, n_subgraphs=S,

@@ -16,6 +16,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import row_attention, shared_attention
+from .encoder import batch_norm_1d
 from .gpn import node_membership
 
 
@@ -67,12 +68,42 @@ def _project_fc(params, fc_feats, cfg: ModelConfig):
     return fc, fc_ih
 
 
-def att_embed(params, att_feats, cfg: ModelConfig):
-    """The att_embed Sequential (AttModel.py:114-119) at eval with use_bn=0."""
+def att_embed(params, att_feats, att_mask, cfg: ModelConfig, bn_state=None):
+    """The att_embed Sequential (AttModel.py:114-119) at eval, with the
+    pack_wrapper semantics (AttModel.py:28-37,364) of the JAX package's
+    ``att_embed``: under ``use_bn`` BN0 over the input, Linear + ReLU, BN1
+    when ``use_bn == 2``, and padded positions (``att_mask`` 0) exactly
+    zero.  BatchNorm reads its running statistics from ``bn_state``
+    (``state["att_bn"]``).  att_feats [..., N, L], att_mask [..., N] ->
+    [..., N, R]."""
+    dec = params["decoder"]
+    x = att_feats
     if cfg.use_bn:
-        raise NotImplementedError("att_embed BatchNorm (use_bn) is not "
-                                  "ported yet")
-    return torch.relu(_dense(att_feats, params["decoder"]["att_embed"]))
+        if bn_state is None:
+            raise ValueError("use_bn != 0 requires bn_state "
+                             "(state['att_bn'] from init_params)")
+        x = batch_norm_1d(x, dec["att_bn0"], bn_state["bn0"])
+    att = torch.relu(_dense(x, dec["att_embed"]))
+    if cfg.use_bn == 2:
+        att = batch_norm_1d(att, dec["att_bn1"], bn_state["bn1"])
+    if cfg.use_bn:
+        # pad_packed_sequence zero-fills the padded rows
+        att = att * att_mask[..., None]
+    return att
+
+
+def prepare_features(params, fc_feats, att_feats, att_mask, cfg: ModelConfig,
+                     bn_state=None) -> PreparedFeatures:
+    """fc_embed / att_embed / ctx2att over gathered node features
+    (AttModel.py:356-368): fc_feats [S, 2L], att_feats [S, N, L], att_mask
+    [S, N].  The Full-GC test path's layout: one row per image over all of
+    its nodes."""
+    require_float32(cfg)
+    fc, fc_ih = _project_fc(params, fc_feats, cfg)
+    att = att_embed(params, att_feats, att_mask, cfg, bn_state)
+    p_att = _dense(att, params["decoder"]["ctx2att"])
+    return PreparedFeatures(fc=fc, att=att, p_att=p_att, mask=att_mask,
+                            fc_ih=fc_ih)
 
 
 def _gather_nodes(x_img, ind):
@@ -84,7 +115,7 @@ def _gather_nodes(x_img, ind):
 
 
 def prepare_features_nodes(params, fc_feats, x_obj_img, obj_ind, att_mask,
-                           cfg: ModelConfig,
+                           cfg: ModelConfig, bn_state=None,
                            image_shared: bool = False) -> PreparedFeatures:
     """Eval-path feature preparation that projects the image's node features
     once and then gathers the projected rows per sub-graph.
@@ -94,21 +125,32 @@ def prepare_features_nodes(params, fc_feats, x_obj_img, obj_ind, att_mask,
     any, is the image; rows keep it (flatten with the caller).
 
     image_shared=True keeps the image-level streams and a membership mask
-    (attention then reads ``[images, n_obj, *]`` instead of per-row copies);
-    otherwise the per-row gathered ``[K, N, *]`` layout.
+    (attention then reads ``[images, n_obj, *]`` instead of per-row copies;
+    the membership mask subsumes the ``use_bn`` zero-fill); otherwise the
+    per-row gathered ``[K, N, *]`` layout, where under ``use_bn`` the
+    zero-fill comes before ``ctx2att``, so a padded slot's ``p_att`` is the
+    ``ctx2att`` bias, as in :func:`prepare_features`.
     """
     require_float32(cfg)
+    dec = params["decoder"]
     fc, fc_ih = _project_fc(params, fc_feats, cfg)
-    att_img = att_embed(params, x_obj_img, cfg)
-    p_att_img = _dense(att_img, params["decoder"]["ctx2att"])
+    node_mask = torch.ones(x_obj_img.shape[:-1], dtype=att_mask.dtype,
+                           device=att_mask.device)
+    att_img = att_embed(params, x_obj_img, node_mask, cfg, bn_state)
+    p_att_img = _dense(att_img, dec["ctx2att"])
     if image_shared:
         mem = node_membership(obj_ind, att_mask, x_obj_img.shape[-2])
         return PreparedFeatures(fc=fc, att=None, p_att=None, mask=mem,
                                 fc_ih=fc_ih, att_img=att_img,
                                 p_att_img=p_att_img)
-    return PreparedFeatures(fc=fc, att=_gather_nodes(att_img, obj_ind),
-                            p_att=_gather_nodes(p_att_img, obj_ind),
-                            mask=att_mask, fc_ih=fc_ih)
+    att = _gather_nodes(att_img, obj_ind)
+    if cfg.use_bn:
+        att = att * att_mask[..., None]
+        p_att = _dense(att, dec["ctx2att"])
+    else:
+        p_att = _gather_nodes(p_att_img, obj_ind)
+    return PreparedFeatures(fc=fc, att=att, p_att=p_att, mask=att_mask,
+                            fc_ih=fc_ih)
 
 
 def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):

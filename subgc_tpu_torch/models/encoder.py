@@ -3,14 +3,23 @@
 The counterpart of ``subgc_tpu/models/encoder.py``: the node/relation
 adjacency is one one-hot comparison instead of the reference's per-image
 scatter loop (`models/lib/gcn_backbone.py:55-67`), and message passing is
-two matmuls per collection unit (`graph_conv_unit.py:28-36`).  The Full-GC
-variant's BatchNorm is not ported yet.
+two matmuls per collection unit (`graph_conv_unit.py:28-36`), with the
+Full-GC variant's BatchNorm at eval between them and the adjacency product.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import ModelConfig
+
+
+def batch_norm_1d(x, p, s, eps: float = 1e-5):
+    """torch.nn.BatchNorm1d at eval over the last axis: running statistics
+    ``s`` {mean, var}, affine ``p`` {scale, bias}.  Written in the JAX
+    package's order, ``(x - mean) * rsqrt(var + eps) * scale + bias``, which
+    ``F.batch_norm`` does not keep."""
+    return (x - s["mean"]) * torch.rsqrt(s["var"] + eps) * p["scale"] \
+        + p["bias"]
 
 
 def _dense(x, p):
@@ -58,10 +67,13 @@ def make_adjacency(rel_ind, n_obj: int):
     return adj_s.transpose(1, 2), adj_o.transpose(1, 2)
 
 
-def _collect(source, adj, unit):
-    """One collection unit: low-rank transform of source, adjacency average
-    (graph_conv_unit.py:28-36).  adj is [B,T,S], source [B,S,L]."""
+def _collect(source, adj, unit, ustate):
+    """One collection unit: low-rank transform of source, BatchNorm if the
+    unit has one, adjacency average (graph_conv_unit.py:28-36).  adj is
+    [B,T,S], source [B,S,L]."""
     h = _dense(_dense(source, unit["lft"]), unit["rgt"])
+    if "bn" in unit:
+        h = batch_norm_1d(h, unit["bn"], ustate)
     collect = adj @ h
     degree = adj.sum(2)[..., None]
     return torch.relu(collect / (degree + 1e-7))
@@ -69,13 +81,11 @@ def _collect(source, adj, unit):
 
 def gcn_forward(params, state, x_obj, x_pred, rel_ind, cfg: ModelConfig):
     """Stacked graph convolutions with periodic residuals
-    (gcn_backbone.py:29-53), eval mode.
+    (gcn_backbone.py:29-53), eval mode: BatchNorm units read their running
+    statistics from ``state["gcn_bn"][layer][unit]``.
 
     Returns (x_obj [B,N,L], x_pred [B,K,L], state).
     """
-    if cfg.gcn_bn:
-        raise NotImplementedError("the GCN's BatchNorm (Full-GC) is not "
-                                  "ported yet")
     if cfg.gcn_layers == 0:
         return x_obj, x_pred, state
 
@@ -85,11 +95,12 @@ def gcn_forward(params, state, x_obj, x_pred, rel_ind, cfg: ModelConfig):
 
     res_obj, res_pred = x_obj, x_pred
     for i, units in enumerate(params["gcn"]):
+        us = state["gcn_bn"][i]
         # both node and edge updates read the *input* features of this layer
-        o_from_s = _collect(x_pred, adj_s, units[0])
-        o_from_o = _collect(x_pred, adj_o, units[1])
-        p_from_s = _collect(x_obj, adj_s_t, units[2])
-        p_from_o = _collect(x_obj, adj_o_t, units[3])
+        o_from_s = _collect(x_pred, adj_s, units[0], us[0])
+        o_from_o = _collect(x_pred, adj_o, units[1], us[1])
+        p_from_s = _collect(x_obj, adj_s_t, units[2], us[2])
+        p_from_o = _collect(x_obj, adj_o_t, units[3], us[3])
         x_obj = (o_from_s + o_from_o) / 2
         x_pred = (p_from_s + p_from_o) / 2
         if (i + 1) % cfg.gcn_residual == 0:

@@ -55,9 +55,9 @@ def gpn_test_forward(params, x_obj_img, sub_obj_ind, sub_att_mask,
     read-out pools through the node-set membership matrix: the mean as one
     matmul, the max over a masked broadcast (post-GCN node features are >= 0
     and node sets are duplicate-free, so both match the reference's gather).
+    Under ``use_gt_subg`` (the Sup. model, which has no scorer) every score
+    is 1.
     """
-    if cfg.use_gt_subg:
-        raise NotImplementedError("use_gt_subg is not ported yet")
     n_obj = x_obj_img.shape[-2]
     mem = node_membership(sub_obj_ind, sub_att_mask, n_obj)     # [.., S, n]
     mean_feat = (mem @ x_obj_img) / sub_att_mask.sum(-1, keepdim=True)
@@ -66,7 +66,12 @@ def gpn_test_forward(params, x_obj_img, sub_obj_ind, sub_att_mask,
               + (mem[..., :, :, None] - 1.0) * 1e30)
     max_feat = masked.amax(dim=-2)
     read_out = torch.cat([max_feat, mean_feat], dim=-1)
-    return GPNTestOut(scores=gpn_score(params, read_out), read_out=read_out,
+    if cfg.use_gt_subg:
+        scores = torch.ones(sub_obj_ind.shape[:-1], dtype=torch.float32,
+                            device=read_out.device)
+    else:
+        scores = gpn_score(params, read_out)
+    return GPNTestOut(scores=scores, read_out=read_out,
                       att_masks=sub_att_mask)
 
 

@@ -64,6 +64,16 @@ def _zero_bias(p):
     return {"w": p["w"], "b": np.zeros_like(p["b"])}
 
 
+def _bn(dim):
+    return {"scale": np.ones((dim,), np.float32),
+            "bias": np.zeros((dim,), np.float32)}
+
+
+def _bn_state(dim):
+    return {"mean": np.zeros((dim,), np.float32),
+            "var": np.ones((dim,), np.float32)}
+
+
 def _lstm_cell(rng, n_in, n_hid):
     bound = 1.0 / math.sqrt(n_hid)
 
@@ -82,10 +92,10 @@ def init_params_numpy(cfg: ModelConfig, seed: int = 0,
     0.001) GCN units with zero biases, zero-bias sGPN layers, N(0, 1)
     embeddings), drawn from ``np.random.default_rng(seed)``.
 
-    Sub-GC and Full-GC layouts without BatchNorm; ``gcn_bn`` and ``use_bn``
-    raise, as the port does not run them yet."""
-    if cfg.gcn_bn or cfg.use_bn:
-        raise NotImplementedError("BatchNorm layers are not ported yet")
+    BatchNorm layers (``gcn_bn``: ``bn`` per GCN unit; ``use_bn`` 1/2:
+    ``att_bn0``/``att_bn1`` in the decoder) start at scale 1, bias 0, and
+    their running statistics (``state["gcn_bn"][layer][unit]``,
+    ``state["att_bn"]``) at mean 0, var 1, as the JAX package's do."""
     rng = np.random.default_rng(seed)
     n_obj_names = n_obj_names or cfg.num_obj_classes
     n_pred_names = n_pred_names or cfg.num_rel_classes
@@ -103,11 +113,17 @@ def init_params_numpy(cfg: ModelConfig, seed: int = 0,
     fusion["pred_emb_proj"] = _linear(rng, E, L)
     params = {"fusion": fusion}
 
-    params["gcn"] = [[{"lft": _linear(rng, L, 512, "gcn", "zero"),
-                       "rgt": _linear(rng, 512, L, "gcn", "zero")}
-                      for _ in range(4)] for _ in range(cfg.gcn_layers)]
-    state = {"gcn_bn": [[{} for _ in range(4)]
-                        for _ in range(cfg.gcn_layers)]}
+    def unit():
+        u = {"lft": _linear(rng, L, 512, "gcn", "zero"),
+             "rgt": _linear(rng, 512, L, "gcn", "zero")}
+        if cfg.gcn_bn:
+            u["bn"] = _bn(L)
+        return u
+
+    params["gcn"] = [[unit() for _ in range(4)]
+                     for _ in range(cfg.gcn_layers)]
+    state = {"gcn_bn": [[_bn_state(L) if cfg.gcn_bn else {}
+                         for _ in range(4)] for _ in range(cfg.gcn_layers)]}
 
     if cfg.use_gpn:
         gpn = {}
@@ -133,6 +149,13 @@ def init_params_numpy(cfg: ModelConfig, seed: int = 0,
         "alpha_net": _linear(rng, H, 1),
         "logit": _linear(rng, R, V1),
     }
+    if cfg.use_bn:
+        # BN0 over the true input dim gcn_dim (see the JAX package's note)
+        params["decoder"]["att_bn0"] = _bn(L)
+        state["att_bn"] = {"bn0": _bn_state(L)}
+        if cfg.use_bn == 2:
+            params["decoder"]["att_bn1"] = _bn(R)
+            state["att_bn"]["bn1"] = _bn_state(R)
     return params, state
 
 
@@ -140,10 +163,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 n_obj_names: Optional[int] = None,
                 n_pred_names: Optional[int] = None):
     """(params, state) as tensors on ``device``; see
-    :func:`init_params_numpy`."""
+    :func:`init_params_numpy`.  A state from elsewhere (a JAX checkpoint's
+    ``"state"``, the JAX package's ``init_params``) goes onto the device the
+    same way, through :func:`params_from_numpy`."""
     dev = resolve_device(device)
     params, state = init_params_numpy(cfg, seed, n_obj_names, n_pred_names)
-    return params_from_numpy(params, dev), state
+    return params_from_numpy(params, dev), params_from_numpy(state, dev)
 
 
 def _unflatten(flat):

@@ -1,13 +1,14 @@
-"""Sub-GC test path: encoder + sGPN + NMS -> decode-ready features.
+"""Test path: encoder + sGPN + NMS -> decode-ready features.
 
 The counterpart of the test side of ``subgc_tpu/models/subgc.py`` (the
-encoder+sGPN+NMS prefix of the reference's `_sample`, `AttModel.py:179-276`),
-Sub-GC branch only.  The JAX package vmaps sGPN+NMS per image; here the image
-axis is a batch dimension of every op.
+encoder+sGPN+NMS prefix of the reference's `_sample`, `AttModel.py:179-276`):
+the Sub-GC branch batched over images, with NMS skipped under SCT, and the
+Full-GC branch for one image.  The JAX package vmaps sGPN+NMS per image;
+here the image axis is a batch dimension of every op.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,25 +27,31 @@ class EncodedImage(NamedTuple):
     keep_valid: torch.Tensor      # [B*Smax] bool
 
 
-def _check_supported(cfg: ModelConfig, ecfg: EvalConfig):
-    if not cfg.use_gpn:
-        raise NotImplementedError("Full-GC is not ported yet")
-    if ecfg.sct:
-        raise NotImplementedError("SCT decoding is not ported yet")
+def _full_graph_readout(params, read_out):
+    """Full-GC read-out projection: two Linears, no activation
+    (AttModel.py:100-102)."""
+    ro = params["readout"]
+    return (read_out @ ro["readout1"]["w"] + ro["readout1"]["b"]) \
+        @ ro["readout2"]["w"] + ro["readout2"]["b"]
 
 
 def _encode_one(params, x_obj, subs: SubgraphSet, cfg: ModelConfig,
-                ecfg: EvalConfig):
+                ecfg: EvalConfig, bn_state=None):
     """sGPN + NMS + feature prep: the JAX package's per-image ``_encode_one``
     with the image vmap written out as the leading axis of ``x_obj``
-    [B, n_obj, L] and ``subs`` [B, S, ...].  Returns (feats with rows
-    [B, K, ...] and image streams [B, n_obj, *], scores, keep_ind,
-    keep_valid), each [B, K]."""
-    _check_supported(cfg, ecfg)
+    [B, n_obj, L] and ``subs`` [B, S, ...].  Under SCT there is no NMS
+    (AttModel.py:95): every slot of the bucket is a row and ``subs.valid``
+    says which are real.  Returns (feats with rows [B, K, ...] and image
+    streams [B, n_obj, *], scores, keep_ind, keep_valid), each [B, K]."""
     out = G.gpn_test_forward(params, x_obj, subs.obj_ind, subs.att_mask, cfg)
-    keep_ind, keep_valid = G.subgraph_nms(
-        out.scores, subs.obj_ind, subs.att_mask, subs.valid, cfg,
-        ecfg.gpn_nms_thres, ecfg.gpn_max_subg)
+    if ecfg.sct:
+        B, S = subs.valid.shape
+        keep_ind = torch.arange(S, device=x_obj.device).expand(B, S)
+        keep_valid = subs.valid
+    else:
+        keep_ind, keep_valid = G.subgraph_nms(
+            out.scores, subs.obj_ind, subs.att_mask, subs.valid, cfg,
+            ecfg.gpn_nms_thres, ecfg.gpn_max_subg)
     rows = torch.arange(x_obj.shape[0], device=x_obj.device)[:, None]
     # the read-out projects only for the kept sub-graphs, and the node
     # features project once per image before any per-row gather
@@ -52,22 +59,26 @@ def _encode_one(params, x_obj, subs: SubgraphSet, cfg: ModelConfig,
     fc_feats = G.readout_project(params, out.read_out[rows, keep_ind])
     feats = D.prepare_features_nodes(
         params, fc_feats, x_obj, subs.obj_ind[rows, keep_ind],
-        out.att_masks[rows, keep_ind], cfg, image_shared=image_shared)
+        out.att_masks[rows, keep_ind], cfg, bn_state=bn_state,
+        image_shared=image_shared)
     return feats, out.scores[rows, keep_ind], keep_ind, keep_valid
 
 
 def encode_images_batched(params, state, graph: SceneGraph,
                           subs: SubgraphSet, cfg: ModelConfig,
                           ecfg: EvalConfig) -> EncodedImage:
-    """Batched-image encoder: graph [B, ...], subs [B, S, ...] (tensors).
+    """Batched-image Sub-GC encoder: graph [B, ...], subs [B, S, ...]
+    (tensors).
 
     The kept sub-graphs of all images flatten into one [B*Smax] row axis
     that decodes in one beam search; the image-shared node streams stay per
-    image, with ``img_ix = repeat(arange(B), Smax)``.
+    image, with ``img_ix = repeat(arange(B), Smax)``.  Full-GC has no
+    batched route, as in the JAX package: it runs through
+    :func:`encode_image`.
     """
     x_obj, _, _ = E.encode_graph(params, state, graph, cfg)
-    f, scores, keep_ind, keep_valid = _encode_one(params, x_obj, subs, cfg,
-                                                  ecfg)
+    f, scores, keep_ind, keep_valid = _encode_one(
+        params, x_obj, subs, cfg, ecfg, state.get("att_bn"))
     B, K = f.fc.shape[:2]
 
     def flat(x):
@@ -85,10 +96,28 @@ def encode_images_batched(params, state, graph: SceneGraph,
                         keep_ind=flat(keep_ind), keep_valid=flat(keep_valid))
 
 
-def encode_image(params, state, graph: SceneGraph, subs: SubgraphSet,
-                 cfg: ModelConfig, ecfg: EvalConfig) -> EncodedImage:
-    """Encoder + sGPN + NMS for ONE image: graph is a batch of 1, subs
-    [S, ...] (tensors).  Rows are that image's kept sub-graphs."""
-    return encode_images_batched(params, state, graph,
-                                 SubgraphSet(*(x[None] for x in subs)),
-                                 cfg, ecfg)
+def encode_image(params, state, graph: SceneGraph,
+                 subs: Optional[SubgraphSet], cfg: ModelConfig,
+                 ecfg: EvalConfig) -> EncodedImage:
+    """Encoder + sGPN + (optional) NMS for ONE image: graph is a batch of 1,
+    subs [S, ...] (tensors), or None for Full-GC.
+
+    Full-GC (``use_gpn=False``, AttModel.py:196-206) decodes one pseudo
+    sub-graph, the full graph: every node but the dummy, the mean read-out,
+    score 1.  Otherwise rows are the image's kept sub-graphs."""
+    if cfg.use_gpn:
+        return encode_images_batched(params, state, graph,
+                                     SubgraphSet(*(x[None] for x in subs)),
+                                     cfg, ecfg)
+    x_obj, _, _ = E.encode_graph(params, state, graph, cfg)
+    att_feats = x_obj[0:1]
+    fc_feats = _full_graph_readout(params, att_feats.mean(1))
+    dev = x_obj.device
+    att_masks = torch.zeros((1, cfg.obj_num), dtype=torch.float32, device=dev)
+    att_masks[:, :cfg.obj_num - 1] = 1.0
+    feats = D.prepare_features(params, fc_feats, att_feats, att_masks, cfg,
+                               bn_state=state.get("att_bn"))
+    return EncodedImage(
+        feats=feats, scores=torch.ones((1,), dtype=torch.float32, device=dev),
+        keep_ind=torch.zeros((1,), dtype=torch.int64, device=dev),
+        keep_valid=torch.ones((1,), dtype=torch.bool, device=dev))

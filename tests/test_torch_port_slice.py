@@ -33,12 +33,16 @@ def synth(tmp_path_factory):
                             feat_dim=80, n_subgraphs=12, seed=3)
 
 
+def _widths(cfg):
+    """The tiny model widths of ``cfg`` as a build_configs override."""
+    return {f: getattr(cfg, f) for f in
+            ("vocab_size", "rnn_size", "input_encoding_size", "att_hid_size",
+             "gcn_dim", "fc_feat_size", "att_feat_size", "embed_dim",
+             "num_obj_classes", "num_rel_classes")}
+
+
 def test_run_test_split_matches_jax(synth, tiny_cfg, tmp_path):
-    over = dict(model={f: getattr(tiny_cfg, f) for f in
-                       ("vocab_size", "rnn_size", "input_encoding_size",
-                        "att_hid_size", "gcn_dim", "fc_feat_size",
-                        "att_feat_size", "embed_dim", "num_obj_classes",
-                        "num_rel_classes")})
+    over = dict(model=_widths(tiny_cfg))
     jcfg, jecfg, _ = JC.build_configs("Sub_GC_Kar", **over)
     cfg, ecfg, _ = P.build_configs("Sub_GC_Kar", **over)
     assert (ecfg.beam_size, ecfg.gpn_nms_thres, ecfg.gpn_max_subg) == \
@@ -121,3 +125,62 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("preset", sorted(P.TEST_PRESETS))
+def test_every_test_preset_decodes_on_cpu(tiny_cfg, preset):
+    """Each of the eight test presets through the port's entry points at
+    tiny widths, on ``chip_smoke.py``'s synthetic images: Full_GC_Kar per
+    image through encode_image + beam_search, the others through
+    run_test_split (the SCT presets on region-set images, no NMS)."""
+    import chip_smoke as cs
+    over = dict(model=_widths(tiny_cfg),
+                eval=dict(max_subgraph_bucket=16))
+    cfg, ecfg, _ = P.build_configs(preset, **over)
+    params, state = P.init_params(cfg, seed=3, device="cpu")
+    vocab = {str(i): f"w{i}" for i in range(1, cfg.vocab_size + 1)}
+    if not cfg.use_gpn:
+        examples = cs.make_examples(cfg, 2, 1, seed=4)
+        seqs = cs.decode_fullgc(params, state, examples, cfg, ecfg, "cpu")
+        assert seqs.shape == (2, cfg.seq_length)
+        return
+    if ecfg.sct:
+        examples = cs.make_sct_examples(cfg, 3, 16, seed=4,
+                                        gt=ecfg.use_gt_subg)
+    else:
+        examples = cs.make_examples(cfg, 3, 16, seed=4)
+    preds, _, n = P.run_test_split(params, state, cs.MemoryLoader(examples),
+                                   cfg, ecfg, vocab, verbose=False,
+                                   batch_images=2, device="cpu")
+    assert len(preds) == 3 and n == sum(len(p["caption"]) for p in preds)
+    for p, ex in zip(preds, examples):
+        assert np.isfinite(p["subgraph_score"]).all()
+        if ecfg.sct:
+            np.testing.assert_array_equal(p["sorted_subgraph_ind"],
+                                          np.arange(ex.n_subgraphs))
+        else:
+            assert 1 <= len(p["caption"]) <= ecfg.gpn_max_subg
+
+
+def test_verbose_beam_prints_as_jax(synth, tiny_cfg, capsys):
+    """verbose_beam: one random kept sub-graph's beams per image, drawn
+    from RandomState(2019) as the JAX runner draws them; same text."""
+    over = dict(model=_widths(tiny_cfg), eval=dict(verbose_beam=1))
+    jcfg, jecfg, _ = JC.build_configs("Sub_GC_Kar", **over)
+    cfg, ecfg, _ = P.build_configs("Sub_GC_Kar", **over)
+    paths = dict(input_json=synth["input_json"],
+                 input_label_h5=synth["input_label_h5"],
+                 sg_dir=synth["sg_dir"], mask_dir=synth["mask_dir"])
+    jloader = JEvalLoader(jcfg, JC.DataConfig(**paths), bucket=16)
+    loader = P.EvalLoader(cfg, P.DataConfig(**paths), bucket=16)
+    params, state = j_init_params(jax.random.PRNGKey(6), jcfg,
+                                  n_obj_names=30, n_pred_names=10)
+    j_run_test_split(params, state, jloader, jcfg, jecfg, jloader.vocab,
+                     verbose=False, batch_images=2)
+    jout = capsys.readouterr().out
+    tp = P.params_from_numpy(jax.tree_util.tree_map(np.array, params), "cpu")
+    P.run_test_split(tp, state, loader, cfg, ecfg, loader.vocab,
+                     verbose=False, batch_images=2, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("beam search sentences of image") == 4
+    assert out == jout

@@ -4,18 +4,21 @@
     python3 tools/profile_torch_main_path.py [batch_images] [MODEL_TYPE]
 
 Runs a test preset of ``chip_smoke.py`` (default Sub_GC_Kar: beam 2, NMS
-0.75, keep 10; also Sub_GC_Flickr_GRD, Sub_GC_MRNN, Sub_GC_S_MRNN) at full
-model width with random weights on bench-shaped synthetic images, bucket 128
-(1024 for the keep-1000 fan-out presets), through ``make_batched_infer_fn``:
-after a warm-up batch, five batches unprofiled (captions/s).  Then
-``run_test_split`` over five batches of the same images, host work included
-(stacking, transfers, caption text, the grounding collector under
-Sub_GC_Flickr_GRD), and once more under ``cProfile`` for the host functions
-that take the most time.  Then two batches under ``torch.profiler``: prints
-the profiled window's wall time, the device's busy share (the sum of kernel
-times over the wall time; one stream, so kernels do not overlap), the
-kernel launches per batch, and the kernels and operators that take the most
-device time.
+0.75, keep 10; any of the eight) at full model width with random weights on
+bench-shaped synthetic images, bucket 128 (1024 for the keep-1000 fan-out
+presets; the SCT presets take ``chip_smoke.py``'s region-set images at
+bucket 32), through ``make_batched_infer_fn`` (Full_GC_Kar, which has no
+batched route: ``encode_image`` + ``beam_search`` image by image, with
+BatchNorm statistics drawn from a seed): after a warm-up batch, five
+batches unprofiled (captions/s).  Then ``run_test_split`` over five batches
+of the same images, host work included (stacking, transfers, caption text,
+the grounding collector under Sub_GC_Flickr_GRD), and once more under
+``cProfile`` for the host functions that take the most time (Full_GC_Kar:
+the image-by-image decode under ``cProfile``).  Then two batches under
+``torch.profiler``: prints the profiled window's wall time, the device's
+busy share (the sum of kernel times over the wall time; one stream, so
+kernels do not overlap), the kernel launches per batch, and the kernels and
+operators that take the most device time.
 """
 import cProfile
 import io
@@ -47,22 +50,41 @@ def main():
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else cs.BATCH_IMAGES
     preset = sys.argv[2] if len(sys.argv) > 2 else "Sub_GC_Kar"
     cfg, ecfg, _ = build_configs(preset)
-    bucket = cs.FANOUT_BUCKET if ecfg.gpn_max_subg > cs.BUCKET else cs.BUCKET
+    if ecfg.sct:
+        bucket = cs.SCT_BUCKET
+    elif ecfg.gpn_max_subg > cs.BUCKET:
+        bucket = cs.FANOUT_BUCKET
+    else:
+        bucket = cs.BUCKET
     ecfg = ecfg.replace(max_subgraph_bucket=bucket)
     pn, state = init_params_numpy(cfg, seed=0)
-    params = params_from_numpy(pn, "cuda")
-    infer = make_batched_infer_fn(cfg, ecfg)
-    examples = cs.make_examples(cfg, batch, bucket)
+    if not cfg.use_gpn:
+        state = cs.bn_state_from_seed(state, seed=11)
+    params, state = (params_from_numpy(t, "cuda") for t in (pn, state))
+    if ecfg.sct:
+        examples = cs.make_sct_examples(cfg, batch, bucket, seed=21,
+                                        gt=ecfg.use_gt_subg)
+    else:
+        examples = cs.make_examples(cfg, batch, bucket)
     dev = torch.device("cuda")
-    graph, subs = (to_device(x, dev) for x in _stack_examples(examples))
-    infer(params, state, graph, subs)              # warm-up
+    if cfg.use_gpn:
+        infer = make_batched_infer_fn(cfg, ecfg)
+        graph, subs = (to_device(x, dev) for x in _stack_examples(examples))
+
+        def run_batch():
+            out = infer(params, state, graph, subs)
+            out["seq"].cpu()
+            return int(out["keep_valid"].sum())
+    else:
+        def run_batch():
+            cs.decode_fullgc(params, state, examples, cfg, ecfg, dev)
+            return len(examples)
+    run_batch()                                    # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        out = infer(params, state, graph, subs)
-        out["seq"].cpu()
+        n_caps = run_batch()
     plain_ms = 1e3 * (time.perf_counter() - t0) / 5
-    n_caps = int(out["keep_valid"].sum())
 
     loader = cs.MemoryLoader(examples * 5)
     vocab = {str(i): f"w{i}" for i in range(1, cfg.vocab_size + 1)}
@@ -70,11 +92,15 @@ def main():
                  if ecfg.return_att else None)
     split = dict(verbose=False, batch_images=batch, device="cuda",
                  collect_grounding=collector)
-    _, split_s, split_caps = run_test_split(params, state, loader, cfg, ecfg,
-                                            vocab, **split)
     host = cProfile.Profile()
-    host.enable()
-    run_test_split(params, state, loader, cfg, ecfg, vocab, **split)
+    if cfg.use_gpn:
+        _, split_s, split_caps = run_test_split(params, state, loader, cfg,
+                                                ecfg, vocab, **split)
+        host.enable()
+        run_test_split(params, state, loader, cfg, ecfg, vocab, **split)
+    else:
+        host.enable()
+        run_batch()
     host.disable()
     host_top = io.StringIO()
     pstats.Stats(host, stream=host_top).sort_stats("tottime").print_stats(12)
@@ -84,8 +110,7 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_batches):
-            out = infer(params, state, graph, subs)
-            out["seq"].cpu()
+            run_batch()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     avgs = prof.key_averages()
@@ -101,9 +126,13 @@ def main():
     print(f"unprofiled: {plain_ms:.2f} ms/batch of {batch} images, "
           f"{n_caps} captions/batch = {1e3 * n_caps / plain_ms:.1f} "
           f"captions/s")
-    print(f"run_test_split: {1e3 * split_s / 5:.2f} ms/batch = "
-          f"{split_caps / split_s:.1f} captions/s; host functions by own "
-          f"time in a second run under cProfile:")
+    if cfg.use_gpn:
+        print(f"run_test_split: {1e3 * split_s / 5:.2f} ms/batch = "
+              f"{split_caps / split_s:.1f} captions/s; host functions by "
+              f"own time in a second run under cProfile:")
+    else:
+        print("no run_test_split route for Full-GC; host functions by own "
+              "time in one batch under cProfile:")
     print(host_top.getvalue())
     print(f"{n_batches} batches of {batch} images: wall {wall_ms:.2f} ms "
           f"({wall_ms / n_batches:.2f} ms/batch), device busy "
