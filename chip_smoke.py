@@ -60,7 +60,42 @@ Phases (any failure exits non-zero before the last line is printed):
     captions;
 13. Sub_GC_Sup_Flickr_CTL (GT sub-graphs looked up by seed nodes, the
     Sup. model without an sGPN scorer) on the same kind of images: every
-    score exactly 1, and phase 12's checks.
+    score exactly 1, and phase 12's checks; then the beam-shared kernel
+    alone at the CTL presets' shape (image-shared, S=512, G=16, 2 beams)
+    against its plain version;
+14. both kernels alone at the val passes' shapes against their plain
+    versions (same tolerances): per-row at R=320, beam-shared image-shared
+    at S=320, G=64, one beam; then
+    Sub_GC_Kar training at full width (``TrainConfig()``: 64 images = 320
+    sentences, 17 steps, float32) on the port's ``synthetic_train_batch``:
+    3 steps of the hoisted train step, then 2 with scheduled sampling at
+    ss_prob 0.25, dropout on (a seeded generator), the step counter past
+    the LR warmup; after every step the loss and gradient norm are finite
+    and every decoder parameter moved; one more step of each kind runs
+    under CUDA's sync debug mode set to raise and must make no host sync;
+    ms per step, images/s, peak memory.
+    Then one ``backward`` on 2 images (10 sentences) with dropout off, card
+    against CPU from identical params: loss within rtol 1e-5, every
+    parameter's gradient within 1e-3 of the CPU's relative to its norm
+    (plus 1e-6 of the whole gradient's norm, the floor for ``alpha_net``'s
+    bias, whose true gradient is 0), and non-zero on the card wherever it
+    is non-zero on the CPU (``decoder.h2att``, ``alpha_net``, ``ctx2att``
+    and ``att_embed`` named); then the val pass (``make_val_step``, no
+    autograd) on the 64 images: ``row_attention`` launches exactly 17
+    times (once per step), the beam-shared kernel never, and its loss
+    equals the CPU's (plain attention, the same trained params) within rtol
+    1e-5, as it does on 2 images from the initial params;
+15. the same model under ``share_att_train``: card-vs-CPU gradients on 2
+    images as in 14, and a val pass of 64 images through which the
+    beam-shared kernel launches exactly 17 times at one beam, its loss
+    against the CPU's as in 14;
+16. Full_GC_Kar training at full width (the preset's model: GCN BatchNorm,
+    4 layers, residual 1; 100 images = 500 sentences): 2 steps, after
+    which the GCN running statistics have moved and are finite; card
+    against CPU on 2 images: the new BatchNorm state within atol 1e-5 and
+    the gradients as in 14; one more step without a host sync.  Each
+    training phase reads its own peak memory: the earlier phases' tensors
+    have left the card by then.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line.  Needs no network and imports no jax.
@@ -84,6 +119,7 @@ FANOUT_BUCKET = 1024
 FULLGC_IMAGES = 32       # Full_GC_Kar, decoded one image at a time
 SCT_IMAGES = 64          # the CTL presets: 4 dispatches of 16 images
 SCT_BUCKET = 32          # SCTLoader's default bucket
+TRAIN_CHECK_IMAGES = 2   # card-vs-CPU gradients at full width
 F32_PEAK = 67e12         # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM device memory, bytes/s
 
@@ -729,6 +765,263 @@ def run_sct(preset, params_np, state_np, vocab, seed):
     return launches
 
 
+def _leaf_names(tree, prefix=""):
+    """Dotted names of a params tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _loss_and_grads(cfg, params_np, state_np, batch_np, device):
+    """Full training loss (language + sGPN) on ``device`` with dropout off
+    (``train=True``, no generator), its gradient per parameter leaf (None
+    where autograd reaches none) and the new model state, all on the
+    host."""
+    import torch
+    from subgc_tpu_torch import params_from_numpy
+    from subgc_tpu_torch.models.params import params_to_numpy
+    from subgc_tpu_torch.models.subgc import train_forward
+    from subgc_tpu_torch.train.loss import language_model_loss
+    from subgc_tpu_torch.train.optim import tree_leaves
+    from subgc_tpu_torch.train.step import batch_to_device
+    p = params_from_numpy(params_np, device, requires_grad=True)
+    b = batch_to_device(batch_np, device)
+    lp, gl, _, new_state = train_forward(
+        p, params_from_numpy(state_np, device), b.graph, b.labels,
+        b.sub_obj_ind, b.sub_att_mask, b.img_ix, cfg, train=True)
+    loss = language_model_loss(lp, b.labels[:, 1:], b.masks[:, 1:])
+    if gl is not None:
+        loss = loss + gl
+    grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+    return (loss.item(), [None if g is None else g.cpu() for g in grads],
+            params_to_numpy(new_state))
+
+
+def check_train_grads(label, cfg, params_np, state_np, seed):
+    """Card against CPU: one backward on TRAIN_CHECK_IMAGES images at full
+    width.  Returns the new model states (card, CPU)."""
+    import torch
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    batch = synthetic_train_batch(cfg, TRAIN_CHECK_IMAGES, seed=seed)
+    t0 = time.perf_counter()
+    card = _loss_and_grads(cfg, params_np, state_np, batch, "cuda")
+    cpu = _loss_and_grads(cfg, params_np, state_np, batch, "cpu")
+    names = _leaf_names(params_np)
+    if abs(card[0] - cpu[0]) > 1e-5 * abs(cpu[0]):
+        fail(f"{label}: loss card {card[0]} cpu {cpu[0]}")
+    total = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in cpu[1] if g is not None)))
+    worst, worst_name, n_live = 0.0, "", 0
+    for name, gc, gg in zip(names, cpu[1], card[1]):
+        if gc is None or gg is None:
+            if (gc is None) != (gg is None):
+                fail(f"{label}: {name} has a gradient on one side only")
+            continue
+        nc = float(gc.norm())
+        err = float((gg - gc).norm())
+        if err > 1e-3 * nc + 1e-6 * total:
+            fail(f"{label}: {name} gradient card vs cpu |d| {err:.3g}, "
+                 f"|cpu| {nc:.3g}")
+        if nc > 1e-6 * total:
+            n_live += 1
+            if float(gg.norm()) == 0.0:
+                fail(f"{label}: {name} has a zero gradient on the card")
+            if err / nc > worst:
+                worst, worst_name = err / nc, name
+    for name in ("decoder.h2att.w", "decoder.alpha_net.w",
+                 "decoder.ctx2att.w", "decoder.att_embed.w"):
+        g = card[1][names.index(name)]
+        if g is None or float(g.norm()) == 0.0:
+            fail(f"{label}: no gradient reached {name} on the card")
+    print(f"{label} card vs cpu ({time.perf_counter() - t0:.1f} s): loss "
+          f"{card[0]:.6f} / {cpu[0]:.6f}; {n_live} live parameters of "
+          f"{len(names)}, worst relative gradient error {worst:.3g} "
+          f"({worst_name})")
+    return card[2], cpu[2]
+
+
+def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared):
+    """The val pass (no autograd) on the card with the kernel counters reset
+    just before it, then on the CPU (plain attention) from the same params:
+    checks the launches and the card's loss against the CPU's (rtol 1e-5).
+    Returns (card loss, CPU loss, row_attention launches, shared_attention
+    launches), the launches as counted."""
+    import torch
+    from subgc_tpu_torch import params_from_numpy
+    from subgc_tpu_torch.models.params import params_to_numpy
+    from subgc_tpu_torch.ops import attention as A
+    from subgc_tpu_torch.train.step import batch_to_device, make_val_step
+    val_step = make_val_step(cfg)
+    batch = batch_to_device(batch_np, "cuda")
+    torch.cuda.synchronize()
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    loss = val_step(ts.params, ts.model_state, batch)
+    torch.cuda.synchronize()
+    row, shared = A.ROW_LAUNCHES, A.LAUNCHES
+    if (row, shared) != (expect_row, expect_shared):
+        fail(f"{label}: row_attention launched {row} times, shared_attention "
+             f"{shared}; expected {expect_row} and {expect_shared}")
+    check_project_launches(label, row + shared)
+    loss = loss.item()
+    t0 = time.perf_counter()
+    cpu_loss = val_step(
+        *(params_from_numpy(params_to_numpy(t), "cpu")
+          for t in (ts.params, ts.model_state)),
+        batch_to_device(batch_np, "cpu")).item()
+    if not (np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss)):
+        fail(f"{label}: loss card {loss} cpu {cpu_loss}")
+    print(f"{label}: loss card {loss:.6f} cpu {cpu_loss:.6f} "
+          f"({time.perf_counter() - t0:.1f} s on cpu) on "
+          f"{len(batch_np.img_ix)} sentences; row_attention launches {row}, "
+          f"shared_attention {shared}")
+    return loss, cpu_loss, row, shared
+
+
+def check_val_card_cpu(cfg, params_np, state_np, seed):
+    """The val loss on TRAIN_CHECK_IMAGES images, card (kernels) against
+    CPU (plain versions), within rtol 1e-5."""
+    from subgc_tpu_torch import params_from_numpy
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.train.step import batch_to_device, make_val_step
+    batch = synthetic_train_batch(cfg, TRAIN_CHECK_IMAGES, seed=seed)
+    losses = [make_val_step(cfg)(params_from_numpy(params_np, d),
+                                 params_from_numpy(state_np, d),
+                                 batch_to_device(batch, d)).item()
+              for d in ("cuda", "cpu")]
+    if abs(losses[0] - losses[1]) > 1e-5 * abs(losses[1]):
+        fail(f"val loss card {losses[0]} cpu {losses[1]}")
+    return losses
+
+
+def run_train_steps(label, cfg, tcfg, params_np, state_np, n_hoisted,
+                    n_ss, seed):
+    """Full-width train steps on the card from ``params_np``: ``n_hoisted``
+    hoisted steps, then ``n_ss`` with scheduled sampling at 0.25, dropout
+    on, each checked and timed; then one more step of each kind under
+    CUDA's sync debug mode set to raise, which must find no host sync (the
+    mode adds host overhead, so those steps are not timed).  Returns
+    (TrainState, the batch on the host, stats)."""
+    import torch
+    from subgc_tpu_torch import params_from_numpy
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.train.optim import tree_leaves
+    from subgc_tpu_torch.train.step import (batch_to_device,
+                                            init_train_state,
+                                            make_train_step)
+    dev = torch.device("cuda")
+    ts = init_train_state(params_from_numpy(params_np, dev, True),
+                          params_from_numpy(state_np, dev), tcfg,
+                          step=tcfg.warmup_n + 1)       # past the LR warmup
+    batch_np = synthetic_train_batch(cfg, tcfg.batch_size, seed=seed)
+    batch = batch_to_device(batch_np, dev)
+    steps = [make_train_step(cfg, tcfg, ss_active=False),
+             make_train_step(cfg, tcfg)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    names = _leaf_names(params_np)
+
+    def one_step(i, ss, strict):
+        nonlocal ts
+        before = [t.detach().clone() for t in tree_leaves(ts.params)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if strict else 0)
+        try:
+            ts, m = steps[ss](ts, batch, gen, 0, 0.25 if ss else 0.0)
+        except RuntimeError as err:
+            fail(f"{label} step {i} synchronized with the host: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        vals = {k: v.item() for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"{label} step {i}: {vals}")
+        still = [n for n, a, b in zip(names, before, tree_leaves(ts.params))
+                 if torch.equal(a, b)]
+        if any(n.startswith("decoder.") for n in still):
+            fail(f"{label} step {i}: decoder params did not move: {still}")
+        print(f"{label} step {i} ({'scheduled sampling' if ss else 'hoisted'})"
+              f": loss {vals['loss']:.4f} (lang {vals['lang_loss']:.4f}, "
+              f"sGPN {vals['gpn_loss']:.4f}), |g| {vals['grad_norm']:.4f}, "
+              f"lr {vals['lr']:.2e}, "
+              + ("no host sync" if strict else f"{ms:.2f} ms")
+              + f"; {len(names) - len(still)} of {len(names)} params moved")
+        return ms
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = [one_step(i, i >= n_hoisted, False)
+          for i in range(n_hoisted + n_ss)]
+    for ss in ([False, True] if n_ss else [False]):
+        one_step(len(ms) + ss, ss, True)
+    # the first step of each kind pays its first-use costs
+    hoisted_ms = statistics.median(ms[1:n_hoisted])
+    stats = {"images": tcfg.batch_size, "ms_per_step": hoisted_ms,
+             "images_per_s": tcfg.batch_size * 1e3 / hoisted_ms,
+             "ss_ms_per_step": ms[-1] if n_ss > 1 else None,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"{label}: {stats['ms_per_step']:.2f} ms per hoisted step = "
+          f"{stats['images_per_s']:.1f} images/s ({tcfg.batch_size} images, "
+          f"{5 * tcfg.batch_size} sentences); last scheduled-sampling step "
+          f"{stats['ss_ms_per_step']} ms; peak memory "
+          f"{stats['peak_mem_gb']:.2f} GiB (with the parameter snapshot "
+          f"of the move check)")
+    return ts, batch_np, stats
+
+
+def run_train(params_np, state_np):
+    """Phases 14-16.  Returns (row_attention launches, shared_attention
+    launches, the stats printed)."""
+    from subgc_tpu_torch import build_configs
+    from subgc_tpu_torch.models.params import init_params_numpy
+    cfg, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
+    # ---- 14. Sub_GC_Kar training
+    ts, batch_np, kar = run_train_steps("Sub_GC_Kar train", cfg, tcfg,
+                                        params_np, state_np, 3, 2, seed=0)
+    check_train_grads("Sub_GC_Kar gradients", cfg, params_np, state_np,
+                      seed=1)
+    _, _, row, _ = _val_pass("Sub_GC_Kar val pass", cfg, ts, batch_np,
+                             cfg.seq_length + 1, 0)
+    vl = check_val_card_cpu(cfg, params_np, state_np, seed=2)
+    print(f"Sub_GC_Kar val loss on {TRAIN_CHECK_IMAGES} images: card "
+          f"{vl[0]:.6f} cpu {vl[1]:.6f}")
+    # ---- 15. share_att_train
+    shared_cfg = cfg.replace(share_att_train=True)
+    check_train_grads("share_att_train gradients", shared_cfg, params_np,
+                      state_np, seed=3)
+    _, _, _, shared = _val_pass("share_att_train val pass", shared_cfg, ts,
+                                batch_np, 0, cfg.seq_length + 1)
+    # Sub_GC_Kar's TrainState leaves the card before Full_GC_Kar's peak
+    # memory is read
+    del ts
+    # ---- 16. Full_GC_Kar training
+    fcfg, ftcfg, _ = build_configs("Full_GC_Kar", mode="train")
+    fp, fs = init_params_numpy(fcfg, seed=0)
+    fts, _, full = run_train_steps("Full_GC_Kar train", fcfg, ftcfg, fp, fs,
+                                   2, 0, seed=4)
+    for layer, init in zip(fts.model_state["gcn_bn"], fs["gcn_bn"]):
+        for u, u0 in zip(layer, init):
+            for k in ("mean", "var"):
+                v = u[k].cpu().numpy()
+                if not np.isfinite(v).all() or np.array_equal(v, u0[k]):
+                    fail(f"Full_GC_Kar: GCN BatchNorm {k} did not move or "
+                         f"is not finite")
+    card_state, cpu_state = check_train_grads("Full_GC_Kar gradients", fcfg,
+                                              fp, fs, seed=5)
+    err = max(float(np.abs(a[k] - b[k]).max())
+              for la, lb in zip(card_state["gcn_bn"], cpu_state["gcn_bn"])
+              for a, b in zip(la, lb) for k in ("mean", "var"))
+    if err > 1e-5:
+        fail(f"Full_GC_Kar: new BatchNorm state card vs cpu |d| {err:.3g}")
+    print(f"Full_GC_Kar: GCN running statistics moved and finite; new state "
+          f"card vs cpu max |d| {err:.3g}")
+    return row, shared, {"Sub_GC_Kar": kar, "Full_GC_Kar": full}
+
+
 def main():
     try:
         import torch
@@ -848,6 +1141,23 @@ def main():
     sup_launches = run_sct("Sub_GC_Sup_Flickr_CTL",
                            *init_params_numpy(sup_cfg, seed=1), vocab,
                            seed=22)
+    ctl_check = check_attention(params, "image", BATCH_IMAGES * SCT_BUCKET,
+                                BATCH_IMAGES, seed=30)
+    checks.append(ctl_check)
+
+    # ---- 14-16. training; first both kernels at the val passes' shapes
+    _, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
+    S_val = tcfg.seq_per_img * tcfg.batch_size
+    val_row_check = check_row_attention(params, S_val, seed=40)
+    val_shared_check = check_attention(params, "image", S_val,
+                                       tcfg.batch_size, seed=41, beams=1)
+    row_checks.append(val_row_check)
+    checks.append(val_shared_check)
+    del params       # the training phases read their own peak memory
+    val_row, val_shared, train_stats = run_train(params_np, state)
+    print(json.dumps({"train": train_stats, "ctl_attention": ctl_check,
+                      "val_row_attention": val_row_check,
+                      "val_shared_attention": val_shared_check}))
 
     kernels = [{
         "name": "shared_attention",
@@ -855,7 +1165,7 @@ def main():
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
         "launches": (launches + fan_launches + fullgc_launches
-                     + ctl_launches + sup_launches),
+                     + ctl_launches + sup_launches + val_shared),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_check["ms"],
         "plain_ms": main_check["plain_ms"],
@@ -867,7 +1177,7 @@ def main():
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:29",
-        "launches": grd_launches,
+        "launches": grd_launches + val_row,
         "max_abs_err": max(c["max_abs_err"] for c in row_checks),
         "ms": row_checks[0]["ms"],
         "plain_ms": row_checks[0]["plain_ms"],

@@ -1,0 +1,299 @@
+"""Training CLI — `python -m subgc_tpu_torch.cli.train <MODEL_TYPE> [flags]`.
+
+The port's counterpart of ``subgc_tpu/cli/train.py``, with the same flags
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+MODEL_TYPE resolves to the five ``train.sh`` presets (``TRAIN_PRESETS``);
+the loop mirrors `train.py:54-240`: warmup/decay LR, scheduled sampling
+(the hoisted step while ss_prob is 0), the val loss and a checkpoint every
+``save_checkpoint_every`` iterations and at the end, and an emergency
+``_crash`` checkpoint on failure.  ``--start_from`` takes a checkpoint of
+either package (``model.npz`` + ``infos.json``; the port's Adam moments
+when its ``optimizer.npz`` matches), with ``--word_mapping`` for a vocab
+remap.  Batches load synchronously.
+
+Flags whose code the port does not have yet stop with a message naming the
+ROADMAP item: ``--self_critical_after`` (SCST), ``--n_devices`` > 1,
+``--trace_steps``, ``--packed_path`` and ``--compute_dtype bfloat16``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("model_type", nargs="?", default="Sub_GC_Kar")
+    p.add_argument("--checkpoint_path", type=str, default="logs/run")
+    p.add_argument("--start_from", type=str, default=None)
+    p.add_argument("--auto_resume", type=int, default=0,
+                   help="resume from checkpoint_path/model.npz if present")
+    p.add_argument("--trace_steps", type=str, default=None,
+                   help="not ported yet (ROADMAP item 14)")
+    p.add_argument("--word_mapping", type=str, default=None,
+                   help="word_mapping.npy for cross-dataset finetune: maps "
+                        "new vocab index -> old (models/__init__.py:14-41)")
+    p.add_argument("--max_iters", type=int, default=-1,
+                   help="stop after N iterations (useful for smoke runs)")
+    p.add_argument("--save_history_ckpt", type=int, default=0,
+                   help="1: additionally keep an iteration-suffixed copy at "
+                        "every checkpoint (reference opts.py:131)")
+    p.add_argument("--self_critical_after", type=int, default=-1,
+                   help="SCST is not ported yet (ROADMAP item 11)")
+    p.add_argument("--max_epochs", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--learning_rate", type=float, default=None)
+    p.add_argument("--save_checkpoint_every", type=int, default=None)
+    p.add_argument("--val_images_use", type=int, default=None)
+    p.add_argument("--losses_log_every", type=int, default=None)
+    p.add_argument("--input_json", type=str, default=None)
+    p.add_argument("--input_label_h5", type=str, default=None)
+    p.add_argument("--sg_dir", type=str, default=None)
+    p.add_argument("--mask_dir", type=str, default=None)
+    p.add_argument("--packed_path", type=str, default=None,
+                   help="not ported yet (ROADMAP item 14)")
+    p.add_argument("--glove_path", type=str, default=None)
+    p.add_argument("--obj_name_path", type=str, default=None)
+    p.add_argument("--rel_name_path", type=str, default=None)
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="> 1 not ported yet (ROADMAP item 13)")
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16"],
+                   help="bfloat16 not ported yet (ROADMAP item 15)")
+    p.add_argument("--bf16_lstm_gates", type=int, default=None)
+    p.add_argument("--bf16_residuals", type=int, default=None,
+                   help="store the LSTM's saved-for-backward residuals in "
+                        "bf16 (forward unchanged)")
+    p.add_argument("--share_att_train", type=int, default=None,
+                   help="teacher-forced attention over image-shared node "
+                        "streams instead of per-row gathered copies")
+    p.add_argument("--use_bn", type=int, default=None, choices=[0, 1, 2],
+                   help="att_embed BatchNorm (opts.py:46-47)")
+    p.add_argument("--gcn_layers", type=int, default=None)
+    p.add_argument("--gcn_residual", type=int, default=None)
+    p.add_argument("--gcn_bn", type=int, default=None)
+    p.add_argument("--gcn_dim", type=int, default=None)
+    p.add_argument("--rnn_size", type=int, default=None)
+    p.add_argument("--att_hid_size", type=int, default=None)
+    p.add_argument("--input_encoding_size", type=int, default=None)
+    p.add_argument("--pred_emb_type", type=int, default=None, choices=[1, 2])
+    p.add_argument("--drop_prob_lm", type=float, default=None)
+    p.add_argument("--seed", type=int, default=2019)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args):
+    refused = [
+        (args.self_critical_after >= 0, "--self_critical_after",
+         "11 (SCST, train/scst.py)"),
+        (args.n_devices is not None and args.n_devices > 1, "--n_devices",
+         "13 (parallelism)"),
+        (args.trace_steps, "--trace_steps", "14 (profiling)"),
+        (args.packed_path, "--packed_path", "14 (packed shards)"),
+        (args.compute_dtype == "bfloat16", "--compute_dtype bfloat16",
+         "15 (bf16 chain)"),
+    ]
+    for on, flag, item in refused:
+        if on:
+            raise SystemExit(f"{flag} is not ported to subgc_tpu_torch yet "
+                             f"(ROADMAP item {item})")
+
+
+def _overrides(args):
+    overrides = {"train": {}, "data": {}, "model": {}}
+    for k in ["max_epochs", "batch_size", "learning_rate",
+              "save_checkpoint_every", "val_images_use", "losses_log_every"]:
+        if getattr(args, k) is not None:
+            overrides["train"][k] = getattr(args, k)
+    for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir",
+              "glove_path", "obj_name_path", "rel_name_path"]:
+        if getattr(args, k) is not None:
+            overrides["data"][k] = getattr(args, k)
+    for k in ["compute_dtype", "use_bn", "gcn_layers", "gcn_residual",
+              "gcn_dim", "rnn_size", "att_hid_size", "input_encoding_size",
+              "pred_emb_type", "drop_prob_lm"]:
+        if getattr(args, k) is not None:
+            overrides["model"][k] = getattr(args, k)
+    for k in ["bf16_lstm_gates", "bf16_residuals", "share_att_train",
+              "gcn_bn"]:
+        if getattr(args, k) is not None:
+            overrides["model"][k] = bool(getattr(args, k))
+    return overrides
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    import torch
+
+    from ..config import build_configs, config_to_json
+    from ..data.dataset import TrainLoader
+    from ..device import resolve_device
+    from ..io.glove import class_embeddings
+    from ..models.params import init_params_numpy, params_from_numpy
+    from ..train import checkpoint as C
+    from ..train.optim import AdamState, ss_prob
+    from ..train.step import (batch_to_device, init_train_state,
+                              make_train_step, make_val_step)
+    from ..utils.logging import MetricsLogger
+
+    dev = resolve_device(args.device)
+    mcfg, tcfg, dcfg = build_configs(args.model_type, mode="train",
+                                     **_overrides(args))
+    loader = TrainLoader(mcfg, tcfg, dcfg, seed=args.seed)
+    mcfg = mcfg.replace(vocab_size=loader.vocab_size,
+                        seq_length=loader.seq_length)
+
+    obj_names = np.load(dcfg.obj_name_path, allow_pickle=True,
+                        encoding="latin1")
+    rel_names = np.load(dcfg.rel_name_path, allow_pickle=True,
+                        encoding="latin1")
+    obj_vecs = rel_vecs = None
+    if os.path.exists(dcfg.glove_path):
+        obj_vecs = class_embeddings(list(obj_names), dcfg.glove_path,
+                                    mcfg.embed_dim)
+        rel_vecs = class_embeddings(list(rel_names), dcfg.glove_path,
+                                    mcfg.embed_dim)
+    params_np, state_np = init_params_numpy(
+        mcfg, seed=args.seed, n_obj_names=len(obj_names),
+        n_pred_names=len(rel_names), obj_glove=obj_vecs, pred_glove=rel_vecs)
+    iteration, epoch = 0, 0
+    histories = {"loss_history": {}, "lr_history": {}, "ss_prob_history": {},
+                 "val_loss_history": {}}
+    moments = None
+
+    if (args.auto_resume and not args.start_from
+            and os.path.exists(os.path.join(args.checkpoint_path,
+                                            "model.npz"))):
+        args.start_from = args.checkpoint_path
+        print(f"auto-resuming from {args.checkpoint_path}")
+    if args.start_from:
+        p2, s2, moments, infos, histories2 = C.load_checkpoint(
+            args.start_from, params_template=params_np)
+        wm = None
+        if args.word_mapping:
+            wm = np.load(args.word_mapping, allow_pickle=True,
+                         encoding="latin1")
+        params_np = C.optimistic_restore(params_np, p2, word_mapping=wm)
+        state_np = s2
+        iteration = infos.get("iter", 0)
+        epoch = infos.get("epoch", 0)
+        histories = histories2 or histories
+
+    ts = init_train_state(params_from_numpy(params_np, dev, True),
+                          params_from_numpy(state_np, dev), tcfg,
+                          step=iteration)
+    if moments is not None:
+        count, mu, nu = moments
+        ts = ts._replace(opt_state=AdamState(
+            count=count, mu=params_from_numpy(mu, dev),
+            nu=params_from_numpy(nu, dev)))
+
+    # the ss-inactive step hoists the word-embedding gate products out of
+    # the step loop; a run that never reaches scheduled sampling uses only
+    # that one
+    step_ss = make_train_step(mcfg, tcfg)
+    step_hoisted = make_train_step(mcfg, tcfg, ss_active=False)
+    val_step = make_val_step(mcfg)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    os.makedirs(args.checkpoint_path, exist_ok=True)
+    infos_base = {
+        "model_config": config_to_json(mcfg),
+        "train_config": config_to_json(tcfg),
+        "data_config": config_to_json(dcfg),
+        "model_type": args.model_type,
+        "vocab": loader.vocab,
+    }
+
+    def save(suffix=""):
+        infos = dict(infos_base, iter=iteration, epoch=epoch)
+        C.save_checkpoint(args.checkpoint_path, ts.params, ts.model_state,
+                          ts.opt_state, infos, histories, suffix=suffix)
+        print(f"checkpoint saved to {args.checkpoint_path}{suffix or ''} "
+              f"at iter {iteration}")
+
+    print(f"training {args.model_type}: vocab {mcfg.vocab_size}, "
+          f"{len(loader.split_ix['train'])} train images, "
+          f"batch {tcfg.batch_size}, device {dev}")
+    metrics_log = MetricsLogger(args.checkpoint_path)
+    t_start = time.time()
+    n_steps = 0
+    try:
+        while True:
+            sp = ss_prob(epoch, tcfg)
+            batch, _, wrapped = loader.get_batch("train")
+            step = step_hoisted if sp == 0.0 else step_ss
+            ts, metrics = step(ts, batch_to_device(batch, dev), generator,
+                               epoch, sp)
+            iteration += 1
+            n_steps += 1
+
+            if iteration % tcfg.losses_log_every == 0 or iteration % 5 == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+            if iteration % tcfg.losses_log_every == 0:
+                histories["loss_history"][str(iteration)] = m["loss"]
+                histories["lr_history"][str(iteration)] = m["lr"]
+                histories["ss_prob_history"][str(iteration)] = sp
+                metrics_log.log(iteration, {
+                    "train_loss": m["loss"], "gpn_loss": m["gpn_loss"],
+                    "lang_loss": m["lang_loss"], "learning_rate": m["lr"],
+                    "scheduled_sampling_prob": sp,
+                    "grad_norm": m["grad_norm"]})
+            if iteration % 5 == 0:
+                print(f"iter {iteration} (ep {epoch}): gpn "
+                      f"{m['gpn_loss']:.3f} lang {m['lang_loss']:.3f} loss "
+                      f"{m['loss']:.3f} lr {m['lr']:.2e} "
+                      f"({(time.time() - t_start) / n_steps:.3f}s/it)")
+            if wrapped:
+                epoch += 1
+
+            done = ((tcfg.max_epochs >= 0 and epoch >= tcfg.max_epochs)
+                    or (args.max_iters > 0 and iteration >= args.max_iters))
+            if iteration % tcfg.save_checkpoint_every == 0 or done:
+                # quick val loss (eval_utils.py:73-86)
+                vloss, nval = 0.0, 0
+                loader.reset_iterator("val")
+                max_val = tcfg.val_images_use // tcfg.batch_size
+                for _ in range(max(1, min(2, max_val))):
+                    vb, _, vw = loader.get_batch("val")
+                    vloss += float(val_step(ts.params, ts.model_state,
+                                            batch_to_device(vb, dev)))
+                    nval += 1
+                    if vw:
+                        break
+                histories["val_loss_history"][str(iteration)] = \
+                    vloss / max(nval, 1)
+                metrics_log.log(iteration, {"val_loss": vloss / max(nval, 1)})
+                print(f"val loss {vloss / max(nval, 1):.3f}")
+                save()
+                if args.save_history_ckpt:
+                    save(suffix=f"-{iteration}")
+                if done:
+                    break
+    except KeyboardInterrupt:
+        # emergency checkpoint on interruption (the reference just prints a
+        # traceback and exits, train.py:233-235)
+        print(f"interrupted at iter {iteration}; saving emergency checkpoint")
+        save(suffix="_crash")
+        raise SystemExit(1)
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        print(f"training failed at iter {iteration}; saving emergency "
+              f"checkpoint")
+        save(suffix="_crash")
+        raise
+    finally:
+        metrics_log.close()
+    print(f"done at iter {iteration}, epoch {epoch}")
+    return {"iter": iteration, "epoch": epoch}
+
+
+if __name__ == "__main__":
+    main()

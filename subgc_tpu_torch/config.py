@@ -1,11 +1,12 @@
 """Configuration dataclasses, field for field the JAX package's.
 
-The fields, defaults and test presets are those of ``subgc_tpu/config.py``,
-so that an ``infos.json`` written by either package loads in the other
-(:func:`config_from_json`).  Some fields select code paths that exist only in
-the JAX package (Pallas attention, beam chunking, folded or merged LSTM
-tables, bf16 gate streams); the port reads them but does not act on them, and
-says so where a caller would notice.
+The fields, defaults and presets (train and test) are those of
+``subgc_tpu/config.py``, so that an ``infos.json`` written by either package
+loads in the other (:func:`config_to_json`, :func:`config_from_json`).  Some
+fields select code paths that exist only in the JAX package (Pallas
+attention, beam chunking, folded or merged LSTM tables, bf16 gate streams);
+the port reads them but does not act on them, and says so where a caller
+would notice.
 """
 from __future__ import annotations
 
@@ -72,8 +73,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization schedule (`opts.py` + `train.sh`); carried so a
-    training checkpoint's ``infos.json`` loads."""
+    """Optimization schedule (`opts.py` + `train.sh`)."""
     batch_size: int = 64
     seq_per_img: int = 5
     gpn_batch: int = 2
@@ -163,6 +163,26 @@ _FULL_GC_MODEL = dict(noun_fuse=False, pred_emb_type=2, gcn_layers=4,
 _FLICKR = dict(input_json="data/flickr30ktalk.json",
                input_label_h5="data/flickr30ktalk_label.h5")
 
+TRAIN_PRESETS = {
+    # the reference's train.sh presets
+    "Sub_GC_MRNN": dict(model=_SUB_GC_MODEL,
+                        train=dict(batch_size=64, max_epochs=35),
+                        data=dict(use_MRNN_split=True)),
+    "Sub_GC_Kar": dict(model=_SUB_GC_MODEL,
+                       train=dict(batch_size=64, max_epochs=35),
+                       data=dict()),
+    "Full_GC_Kar": dict(model=_FULL_GC_MODEL,
+                        train=dict(batch_size=100, max_epochs=35,
+                                   save_checkpoint_every=3000),
+                        data=dict()),
+    "Sub_GC_Flickr": dict(model=_SUB_GC_MODEL,
+                          train=dict(batch_size=64, max_epochs=36),
+                          data=_FLICKR),
+    "Sub_GC_Sup_Flickr": dict(model={**_SUB_GC_MODEL, "use_gt_subg": True},
+                              train=dict(batch_size=64, max_epochs=36),
+                              data=_FLICKR),
+}
+
 TEST_PRESETS = {
     # the reference's test.sh presets
     "Sub_GC_MRNN": dict(model=_SUB_GC_MODEL,
@@ -205,22 +225,31 @@ TEST_PRESETS = {
 
 def build_configs(model_type: str, mode: str = "test",
                   vocab_size: Optional[int] = None, **overrides):
-    """Resolve a MODEL_TYPE test preset into (ModelConfig, EvalConfig,
-    DataConfig).  The training presets are not ported yet."""
-    if mode != "test":
-        raise NotImplementedError("training presets are not ported yet")
-    if model_type not in TEST_PRESETS:
+    """Resolve a MODEL_TYPE preset into (ModelConfig, EvalConfig or, with
+    ``mode="train"``, TrainConfig, DataConfig)."""
+    registry = TRAIN_PRESETS if mode == "train" else TEST_PRESETS
+    if model_type not in registry:
         raise KeyError(f"unknown MODEL_TYPE {model_type!r}; have "
-                       f"{sorted(TEST_PRESETS)}")
-    preset = TEST_PRESETS[model_type]
+                       f"{sorted(registry)}")
+    preset = registry[model_type]
     mkw = dict(preset.get("model", {}))
     if vocab_size is not None:
         mkw["vocab_size"] = vocab_size
     mkw.update(overrides.get("model", {}))
     model = ModelConfig(**mkw)
     data = DataConfig(**{**preset.get("data", {}), **overrides.get("data", {})})
-    ecfg = EvalConfig(**{**preset.get("eval", {}), **overrides.get("eval", {})})
-    return model, ecfg, data
+    if mode == "train":
+        other = TrainConfig(**{**preset.get("train", {}),
+                               **overrides.get("train", {})})
+    else:
+        other = EvalConfig(**{**preset.get("eval", {}),
+                              **overrides.get("eval", {})})
+    return model, other, data
+
+
+def config_to_json(cfg) -> str:
+    """A config dataclass as ``infos.json`` stores it."""
+    return json.dumps(dataclasses.asdict(cfg), sort_keys=True)
 
 
 def config_from_json(cls, blob: str):

@@ -126,13 +126,16 @@ def _expand_group(params, feats, gs: _GroupState, t: int, cfg: ModelConfig,
                        done_seq=done_seq, done_lps=done_lps, done_p=done_p)
 
 
+@torch.no_grad()
 def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
                 ecfg: EvalConfig) -> BeamOut:
     """Beam search for every sub-graph row of ``feats`` at once.
 
     Both beam attention layouts run (image-shared when ``feats.att_img`` is
     set, per-sub-graph otherwise); the beams of a row always share its
-    features.  Diverse groups (group_size > 1) are not ported yet.
+    features.  Diverse groups (group_size > 1) are not ported yet.  Runs
+    without autograd, so params that require grad decode as their detached
+    copies do.
     """
     if ecfg.group_size != 1:
         raise NotImplementedError("diverse beam groups are not ported yet")

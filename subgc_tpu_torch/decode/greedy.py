@@ -48,22 +48,13 @@ def _topk_mask(lp2: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(keep, lp2, torch.full_like(lp2, float("-inf")))
 
 
-def _draw(logits: torch.Tensor, generator) -> torch.Tensor:
-    """One categorical draw per row from unnormalised log-probabilities
-    (Gumbel-max, as ``jax.random.categorical``); -inf entries are never
-    drawn."""
-    u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
-                   device=logits.device)
-    u = u.clamp_(min=torch.finfo(logits.dtype).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-
-
 class SampleOut(NamedTuple):
     seq: torch.Tensor           # [S, T] int64
     logprobs: torch.Tensor      # [S, T] logprob of each chosen token
     att_weights: torch.Tensor   # [S, T+1, N] under return_att, else [S, T, N]
 
 
+@torch.no_grad()
 def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
            ecfg: EvalConfig,
            generator: Optional[torch.Generator] = None) -> SampleOut:
@@ -72,7 +63,8 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     Both per-row attention layouts run: the image-shared fan-out when
     ``feats.att_img`` is set, the per-row streams otherwise (attention
     capture).  ``generator`` feeds the top-k draws; without one, a generator
-    seeded with 0 on the tensors' device is used.
+    seeded with 0 on the tensors' device is used.  Runs without autograd,
+    so params that require grad decode as their detached copies do.
     """
     D.require_float32(cfg)
     S = feats.fc.shape[0]
@@ -91,7 +83,7 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
         lp, state, att_w = D.decode_step(params, state, it, feats, cfg)
         if ecfg.use_topk_sampling:
             lp2 = torch.log_softmax(lp / ecfg.topk_temp, dim=-1)
-            nxt = _draw(_topk_mask(lp2, ecfg.the_k), generator)
+            nxt = D.draw_categorical(_topk_mask(lp2, ecfg.the_k), generator)
             chosen = torch.gather(lp2, 1, nxt[:, None])[:, 0]
         else:
             nxt = torch.argmax(lp, dim=-1)

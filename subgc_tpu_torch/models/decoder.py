@@ -1,12 +1,23 @@
-"""TopDown attention-LSTM decoder, inference only, float32.
+"""TopDown attention-LSTM decoder, float32: inference and the
+teacher-forced training forward.
 
 The counterpart of ``subgc_tpu/models/decoder.py`` (reference
-`models/AttModel.py:392-471`): att-LSTM -> additive attention -> lang-LSTM ->
-logit -> log_softmax.  Decoder state and tokens carry any leading shape; the
-beam search uses ``[S, bdash]`` (sub-graph, beam), where the JAX package
-vmaps over sub-graphs.  The LSTM, logit and projection products are plain
-``torch.matmul``, as the JAX package leaves them to XLA; attention goes
-through the hand-written kernels in ``ops/attention.py`` in every layout.
+`models/AttModel.py:392-471`, training loop :157-175): att-LSTM -> additive
+attention -> lang-LSTM -> logit -> log_softmax.  Decoder state and tokens
+carry any leading shape; the beam search uses ``[S, bdash]`` (sub-graph,
+beam), where the JAX package vmaps over sub-graphs.  The LSTM, logit and
+projection products are plain ``torch.matmul``, as the JAX package leaves
+them to XLA.
+
+Attention takes one of two routes.  At inference (and in the val pass,
+under ``torch.no_grad()``) every layout goes through the hand-written
+kernels in ``ops/attention.py`` (:func:`attention`).  The kernels are
+forward-only, as the Pallas kernels are, so training and any call that
+needs a gradient attend through :func:`attention_teacher`, the JAX
+package's XLA attention written in torch ops under autograd.
+
+Training draws every dropout mask and scheduled-sampling token from an
+explicit ``torch.Generator``; without one there is no dropout.
 """
 from __future__ import annotations
 
@@ -16,7 +27,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import row_attention, shared_attention
-from .encoder import batch_norm_1d
+from .encoder import batch_norm_1d, batch_norm_1d_train
 from .gpn import node_membership
 
 
@@ -57,53 +68,123 @@ def require_float32(cfg: ModelConfig):
             f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only")
 
 
-def _project_fc(params, fc_feats, cfg: ModelConfig):
-    """fc_embed1/2 and the precomputed att-LSTM w_ih slice for fc (fc is
-    constant across decode steps)."""
+def _dropout(x, rate, generator, train):
+    """Inverted dropout with one mask entry per element: keep with
+    probability ``1 - rate``, scale the kept by ``1 / (1 - rate)``.  Off at
+    eval, at rate 0 and without a generator."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def draw_categorical(logits, generator):
+    """One categorical draw per row from unnormalised log-probabilities
+    (Gumbel-max, as ``jax.random.categorical``); -inf entries are never
+    drawn."""
+    u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
+                   device=logits.device)
+    u = u.clamp_(min=torch.finfo(logits.dtype).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def _project_fc(params, fc_feats, cfg: ModelConfig, generator=None,
+                train: bool = False):
+    """fc_embed1/2 (with train dropout) and the precomputed att-LSTM w_ih
+    slice for fc (fc is constant across decode steps)."""
     dec = params["decoder"]
     fc = torch.relu(_dense(fc_feats, dec["fc_embed1"]))
     fc = torch.relu(_dense(fc, dec["fc_embed2"]))
+    fc = _dropout(fc, cfg.drop_prob_lm, generator, train)
     R1 = cfg.rnn_size
     fc_ih = fc @ dec["att_lstm"]["w_ih"][R1:2 * R1]
     return fc, fc_ih
 
 
-def att_embed(params, att_feats, att_mask, cfg: ModelConfig, bn_state=None):
-    """The att_embed Sequential (AttModel.py:114-119) at eval, with the
-    pack_wrapper semantics (AttModel.py:28-37,364) of the JAX package's
-    ``att_embed``: under ``use_bn`` BN0 over the input, Linear + ReLU, BN1
-    when ``use_bn == 2``, and padded positions (``att_mask`` 0) exactly
-    zero.  BatchNorm reads its running statistics from ``bn_state``
-    (``state["att_bn"]``).  att_feats [..., N, L], att_mask [..., N] ->
-    [..., N, R]."""
+def _bn_flat(x, p, s, train, mask):
+    """BatchNorm over the last axis of ``x`` [..., C]: running statistics
+    at eval; in training batch statistics over the flattened rows, masked
+    by ``mask`` [...] (pack_wrapper).  Returns (y, new running state)."""
+    if not train:
+        return batch_norm_1d(x, p, s), s
+    lead = x.shape[:-1]
+    y, s2 = batch_norm_1d_train(x.reshape(-1, x.shape[-1]), p, s,
+                                mask=mask.reshape(-1))
+    return y.reshape(lead + (x.shape[-1],)), s2
+
+
+def att_embed(params, att_feats, att_mask, cfg: ModelConfig,
+              train: bool = False, generator=None, bn_state=None):
+    """The att_embed Sequential (AttModel.py:114-119) with the pack_wrapper
+    semantics (AttModel.py:28-37,364) of the JAX package's ``att_embed``:
+    under ``use_bn`` BN0 over the input, Linear + ReLU (+ train dropout),
+    BN1 when ``use_bn == 2``, and padded positions (``att_mask`` 0) exactly
+    zero.  BatchNorm reads ``bn_state`` (``state["att_bn"]``) at eval; in
+    training its statistics cover only the real rows.  att_feats [..., N,
+    L], att_mask [..., N] -> (att [..., N, R], new bn_state)."""
     dec = params["decoder"]
     x = att_feats
+    new_bn = bn_state
     if cfg.use_bn:
         if bn_state is None:
             raise ValueError("use_bn != 0 requires bn_state "
                              "(state['att_bn'] from init_params)")
-        x = batch_norm_1d(x, dec["att_bn0"], bn_state["bn0"])
+        x, s0 = _bn_flat(x, dec["att_bn0"], bn_state["bn0"], train, att_mask)
+        new_bn = {**bn_state, "bn0": s0}
     att = torch.relu(_dense(x, dec["att_embed"]))
+    att = _dropout(att, cfg.drop_prob_lm, generator, train)
     if cfg.use_bn == 2:
-        att = batch_norm_1d(att, dec["att_bn1"], bn_state["bn1"])
+        att, s1 = _bn_flat(att, dec["att_bn1"], new_bn["bn1"], train,
+                           att_mask)
+        new_bn = {**new_bn, "bn1": s1}
     if cfg.use_bn:
         # pad_packed_sequence zero-fills the padded rows
         att = att * att_mask[..., None]
-    return att
+    return att, new_bn
 
 
-def prepare_features(params, fc_feats, att_feats, att_mask, cfg: ModelConfig,
-                     bn_state=None) -> PreparedFeatures:
+def prepare_features_bn(params, fc_feats, att_feats, att_mask,
+                        cfg: ModelConfig, train: bool = False, generator=None,
+                        bn_state=None):
     """fc_embed / att_embed / ctx2att over gathered node features
     (AttModel.py:356-368): fc_feats [S, 2L], att_feats [S, N, L], att_mask
-    [S, N].  The Full-GC test path's layout: one row per image over all of
-    its nodes."""
+    [S, N]; with train dropout and BatchNorm in train mode.  Returns (feats,
+    new bn_state).  The layout of the training forward (one row per
+    sentence over its chosen sub-graph's nodes) and of the Full-GC test
+    path (one row per image over all of its nodes)."""
     require_float32(cfg)
-    fc, fc_ih = _project_fc(params, fc_feats, cfg)
-    att = att_embed(params, att_feats, att_mask, cfg, bn_state)
+    fc, fc_ih = _project_fc(params, fc_feats, cfg, generator, train)
+    att, new_bn = att_embed(params, att_feats, att_mask, cfg, train,
+                            generator, bn_state)
     p_att = _dense(att, params["decoder"]["ctx2att"])
     return PreparedFeatures(fc=fc, att=att, p_att=p_att, mask=att_mask,
-                            fc_ih=fc_ih)
+                            fc_ih=fc_ih), new_bn
+
+
+def prepare_features_shared_train(params, fc_feats, x_obj, mem,
+                                  cfg: ModelConfig, train: bool = False,
+                                  generator=None) -> PreparedFeatures:
+    """The training layout under ``share_att_train`` (JAX
+    ``decoder.py:408-448``): the image node features x_obj [B, N, L] are
+    projected once per image, and each row attends over its image's streams
+    through its node-set membership mem [S, N].  Rows must group per image
+    (labels are image-major).  att_embed dropout is drawn per image node,
+    shared by the image's sentences, as in the JAX package.  Raises under
+    ``use_bn``: train-time BatchNorm statistics cover the per-row layout."""
+    require_float32(cfg)
+    if cfg.use_bn:
+        raise ValueError(
+            "share_att_train is incompatible with use_bn: train-time BN "
+            "statistics cover the packed per-row layout")
+    fc, fc_ih = _project_fc(params, fc_feats, cfg, generator, train)
+    node_mask = torch.ones(x_obj.shape[:-1], dtype=mem.dtype,
+                           device=mem.device)
+    att_img, _ = att_embed(params, x_obj, node_mask, cfg, train, generator)
+    p_att_img = _dense(att_img, params["decoder"]["ctx2att"])
+    return PreparedFeatures(fc=fc, att=None, p_att=None, mask=mem,
+                            fc_ih=fc_ih, att_img=att_img,
+                            p_att_img=p_att_img)
 
 
 def _gather_nodes(x_img, ind):
@@ -129,14 +210,15 @@ def prepare_features_nodes(params, fc_feats, x_obj_img, obj_ind, att_mask,
     the membership mask subsumes the ``use_bn`` zero-fill); otherwise the
     per-row gathered ``[K, N, *]`` layout, where under ``use_bn`` the
     zero-fill comes before ``ctx2att``, so a padded slot's ``p_att`` is the
-    ``ctx2att`` bias, as in :func:`prepare_features`.
+    ``ctx2att`` bias, as in :func:`prepare_features_bn`.
     """
     require_float32(cfg)
     dec = params["decoder"]
     fc, fc_ih = _project_fc(params, fc_feats, cfg)
     node_mask = torch.ones(x_obj_img.shape[:-1], dtype=att_mask.dtype,
                            device=att_mask.device)
-    att_img = att_embed(params, x_obj_img, node_mask, cfg, bn_state)
+    att_img, _ = att_embed(params, x_obj_img, node_mask, cfg,
+                           bn_state=bn_state)
     p_att_img = _dense(att_img, dec["ctx2att"])
     if image_shared:
         mem = node_membership(obj_ind, att_mask, x_obj_img.shape[-2])
@@ -207,6 +289,59 @@ def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):
                          wh, bh, v, bv)
 
 
+def attention_teacher(params, h, feats: PreparedFeatures):
+    """Additive attention with post-softmax masking in torch ops under
+    autograd: the training route, the counterpart of the JAX package's XLA
+    attention that ``jax.grad`` differentiates (``decoder.py:488-526``
+    image-shared, ``:539-555`` per-row).  Not the kernels' plain versions
+    (``ops/attention.py``), which stay what the kernels are held to.
+
+    * per-row: h [S, R] over the row's own streams att/p_att [S, N, *];
+    * image-shared (``att_img`` set): rows group per image by position, K =
+      S // B consecutive rows each, over the images' [B, n, *] streams and
+      the rows' membership mask [S, n].
+
+    Returns (att_res [S, D], weights [S, N]).
+    """
+    dec = params["decoder"]
+    if h.dim() != 2:
+        raise ValueError("attention_teacher takes one query per row, h "
+                         "[S, R]; the beam layouts decode under no_grad")
+    att_h = _dense(h, dec["h2att"])                           # [S, H]
+    v, bv = dec["alpha_net"]["w"], dec["alpha_net"]["b"]
+    if feats.att_img is not None:
+        a, p = feats.att_img, feats.p_att_img
+        if a.dim() == 2:                        # single-image layout
+            a, p = a[None], p[None]
+        B, n = a.shape[0], a.shape[1]
+        S = h.shape[0]
+        if S % B != 0:
+            raise ValueError(
+                f"image-shared attention needs rows grouped per image: "
+                f"S={S} not divisible by B={B}")
+        K = S // B
+        dot = torch.tanh(p[:, None] + att_h.reshape(B, K, 1, -1))
+        e = (dot @ v)[..., 0] + bv                            # [B, K, n]
+        w = torch.softmax(e, dim=-1)
+        w = w * feats.mask.reshape(B, K, n)
+        w = w / w.sum(-1, keepdim=True)
+        return (w @ a).reshape(S, -1), w.reshape(S, n)
+    dot = torch.tanh(feats.p_att + att_h[:, None, :])         # [S, N, H]
+    e = (dot @ v)[..., 0] + bv                                # [S, N]
+    w = torch.softmax(e, dim=-1)
+    w = w * feats.mask
+    w = w / w.sum(-1, keepdim=True)
+    return (w[:, None, :] @ feats.att)[:, 0], w
+
+
+def _needs_autograd(*tensors):
+    """Whether autograd would need a gradient through an op on
+    ``tensors`` (grad mode on and one of them requires grad); grad mode
+    alone, as at inference outside ``no_grad``, does not count."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _lstm_nonlin(g, c):
     """LSTM cell nonlinearity on fully-formed gates g = gx + gh + biases."""
     i, f, gg, o = torch.chunk(g, 4, dim=-1)
@@ -218,33 +353,137 @@ def _lstm_nonlin(g, c):
     return o * torch.tanh(c2), c2
 
 
-def _lstm_cell_gx(p, gx, h, c):
-    """LSTM cell with the input-side gates (x @ w_ih + b_ih) precomputed."""
-    return _lstm_nonlin(gx + (h @ p["w_hh"] + p["b_hh"]), c)
+class _LSTMNonlinB16R(torch.autograd.Function):
+    """:func:`_lstm_nonlin` with bfloat16 backward residuals
+    (``cfg.bf16_residuals``; the JAX package's ``custom_vjp``
+    ``_lstm_nonlin_b16r``, ``decoder.py:160-210``).  The forward IS
+    ``_lstm_nonlin``, so it is bit-identical with the flag on or off; the
+    backward keeps (g, c, c2) rounded to bfloat16 instead of autograd's five
+    float32 activation streams and recomputes the elementwise derivatives
+    from them."""
+
+    @staticmethod
+    def forward(ctx, g, c):
+        h2, c2 = _lstm_nonlin(g, c)
+        ctx.save_for_backward(g.to(torch.bfloat16), c.to(torch.bfloat16),
+                              c2.to(torch.bfloat16))
+        return h2, c2
+
+    @staticmethod
+    def backward(ctx, dh2, dc2):
+        g, c, c2 = (t.float() for t in ctx.saved_tensors)
+        gi, gf, gg_, go = torch.chunk(g, 4, dim=-1)
+        i = torch.sigmoid(gi)
+        f = torch.sigmoid(gf)
+        o = torch.sigmoid(go)
+        gg = torch.tanh(gg_)
+        tc2 = torch.tanh(c2)
+        do = dh2 * tc2
+        dc = dc2 + dh2 * o * (1.0 - tc2 * tc2)
+        dg = torch.cat([dc * gg * (i * (1.0 - i)),       # d/d gi
+                        dc * c * (f * (1.0 - f)),        # d/d gf
+                        dc * i * (1.0 - gg * gg),        # d/d gg
+                        do * (o * (1.0 - o))], dim=-1)   # d/d go
+        return dg, dc * f
+
+
+def _lstm_cell_gx(p, gx, h, c, bf16_resid: bool = False):
+    """LSTM cell with the input-side gates (x @ w_ih + b_ih) precomputed;
+    ``bf16_resid`` keeps bfloat16 backward residuals (training)."""
+    g = gx + (h @ p["w_hh"] + p["b_hh"])
+    if bf16_resid:
+        return _LSTMNonlinB16R.apply(g, c)
+    return _lstm_nonlin(g, c)
 
 
 def decode_step(params, state: DecoderState, token,
-                feats: PreparedFeatures, cfg: ModelConfig):
-    """One decoder step at eval.  token [...] int -> (logprobs [..., V+1],
-    state, att weights).  With a beam axis (token [S, B]) each sub-graph's
-    features are shared by its beams."""
+                feats: PreparedFeatures, cfg: ModelConfig,
+                train: bool = False, generator=None, xt_ih=None):
+    """One decoder step.  token [...] int -> (logprobs [..., V+1], state,
+    att weights).  With a beam axis (token [S, B]) each sub-graph's features
+    are shared by its beams.
+
+    In training (``train``), dropout from ``generator`` falls on the word
+    embedding and on the lang-LSTM output before the logit, and
+    ``cfg.bf16_residuals`` selects the bfloat16-residual LSTM backward.
+    ``xt_ih`` is the word embedding's precomputed att-LSTM gate share
+    [S, 4R] (:func:`forward_teacher` hoists all T of them).  Attention runs
+    through the kernels unless this is training or autograd needs a
+    gradient through it (:func:`attention_teacher`)."""
     dec = params["decoder"]
     R1 = cfg.rnn_size
+    b16r = cfg.bf16_residuals and train
     w_ih = dec["att_lstm"]["w_ih"]
     fc_ih = feats.fc_ih if token.dim() == 1 else feats.fc_ih[:, None, :]
-    xt = torch.relu(dec["embed"][token])
-    xt_ih = xt @ w_ih[2 * R1:]
+    if xt_ih is None:
+        xt = torch.relu(dec["embed"][token])
+        xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
+        xt_ih = xt @ w_ih[2 * R1:]
     gx_att = (state.h_lang @ w_ih[:R1] + fc_ih + xt_ih
               + dec["att_lstm"]["b_ih"])
     h_att, c_att = _lstm_cell_gx(dec["att_lstm"], gx_att, state.h_att,
-                                 state.c_att)
+                                 state.c_att, b16r)
 
-    att_res, att_w = attention(params, h_att, feats, cfg)
+    if train or _needs_autograd(
+            h_att, feats.att, feats.p_att, feats.att_img, feats.p_att_img,
+            dec["h2att"]["w"], dec["h2att"]["b"], dec["alpha_net"]["w"],
+            dec["alpha_net"]["b"]):
+        att_res, att_w = attention_teacher(params, h_att, feats)
+    else:
+        att_res, att_w = attention(params, h_att, feats, cfg)
 
     w_ih_l = dec["lang_lstm"]["w_ih"]
     gx_lang = (att_res @ w_ih_l[:R1] + h_att @ w_ih_l[R1:]
                + dec["lang_lstm"]["b_ih"])
     h_lang, c_lang = _lstm_cell_gx(dec["lang_lstm"], gx_lang, state.h_lang,
-                                   state.c_lang)
-    logprobs = torch.log_softmax(_dense(h_lang, dec["logit"]), dim=-1)
+                                   state.c_lang, b16r)
+    out = _dropout(h_lang, cfg.drop_prob_lm, generator, train)
+    logprobs = torch.log_softmax(_dense(out, dec["logit"]), dim=-1)
     return logprobs, DecoderState(h_att, c_att, h_lang, c_lang), att_w
+
+
+def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
+                    train: bool = False, generator=None, ss_prob=None):
+    """Teacher-forced forward over a [S, T+2] label tensor
+    (AttModel.py:157-175): logprobs [S, T+1, V+1] for predicting
+    ``seq[:, 1:]``.
+
+    ``ss_prob is None`` (scheduled sampling off, and every val pass): all T
+    input tokens are known up front, so the word embeddings' att-LSTM gate
+    products are hoisted out of the step loop as one [T*S, E] x [E, 4R]
+    matmul (their dropout masks drawn first).  Otherwise, in training, the
+    input token of each row at step i >= 1 is, with probability
+    ``ss_prob``, a draw from the previous step's distribution; the draws
+    come from ``generator`` (a generator seeded with 0 when none is
+    given, which then also means no dropout).
+    """
+    require_float32(cfg)
+    S, T2 = seq.shape
+    n_steps = T2 - 1
+    dec = params["decoder"]
+    dev = seq.device
+    state = init_state(S, cfg, dev)
+    lps = []
+    if ss_prob is None:
+        R1 = cfg.rnn_size
+        xt = torch.relu(dec["embed"][seq[:, :n_steps].T])      # [T, S, E]
+        xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
+        xt_ih = (xt.reshape(n_steps * S, -1)
+                 @ dec["att_lstm"]["w_ih"][2 * R1:]).reshape(n_steps, S, -1)
+        for i in range(n_steps):
+            lp, state, _ = decode_step(params, state, seq[:, i], feats, cfg,
+                                       train, generator, xt_ih=xt_ih[i])
+            lps.append(lp)
+        return torch.stack(lps, 1)
+    ss_gen = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    for i in range(n_steps):
+        token = seq[:, i]
+        if train and i >= 1:
+            use = torch.rand((S,), generator=ss_gen, device=dev) < ss_prob
+            sampled = draw_categorical(lps[-1].detach(), ss_gen)
+            token = torch.where(use, sampled, token)
+        lp, state, _ = decode_step(params, state, token, feats, cfg, train,
+                                   generator)
+        lps.append(lp)
+    return torch.stack(lps, 1)

@@ -4,7 +4,9 @@ The counterpart of ``subgc_tpu/models/encoder.py``: the node/relation
 adjacency is one one-hot comparison instead of the reference's per-image
 scatter loop (`models/lib/gcn_backbone.py:55-67`), and message passing is
 two matmuls per collection unit (`graph_conv_unit.py:28-36`), with the
-Full-GC variant's BatchNorm at eval between them and the adjacency product.
+Full-GC variant's BatchNorm between them and the adjacency product: running
+statistics at eval, batch statistics in training (which also return the
+updated running statistics).
 """
 from __future__ import annotations
 
@@ -20,6 +22,39 @@ def batch_norm_1d(x, p, s, eps: float = 1e-5):
     ``F.batch_norm`` does not keep."""
     return (x - s["mean"]) * torch.rsqrt(s["var"] + eps) * p["scale"] \
         + p["bias"]
+
+
+def batch_norm_1d_train(x, p, s, momentum: float = 0.1, eps: float = 1e-5,
+                        mask=None):
+    """torch.nn.BatchNorm1d in training over a flattened ``[M, C]`` view:
+    batch statistics, written in the JAX package's order
+    (``subgc_tpu/models/encoder.py:26-56``).  Returns (y, new_state).
+
+    The batch variance is the biased one (``jnp.var``); the running update
+    takes the unbiased one, ``var * m / (m - 1)``, as torch's does.  The new
+    running statistics carry no gradient.
+
+    mask [M] (optional): statistics cover only rows with mask 1, divided by
+    ``mask.sum()`` (the reference's pack_wrapper, `AttModel.py:28-37,364`,
+    where BatchNorm1d sees only the packed real rows).
+    """
+    if mask is None:
+        m = x.shape[0]
+        mean = x.mean(0)
+        d = x - mean
+        var = (d * d).mean(0)
+        unbiased = var * (m / max(m - 1, 1))
+    else:
+        m = mask.sum()
+        mean = (x * mask[:, None]).sum(0) / m
+        d = (x - mean) * mask[:, None]
+        var = (d * d).sum(0) / m
+        unbiased = var * (m / torch.clamp(m - 1.0, min=1.0))
+    new_state = {
+        "mean": ((1 - momentum) * s["mean"] + momentum * mean).detach(),
+        "var": ((1 - momentum) * s["var"] + momentum * unbiased).detach()}
+    y = (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y, new_state
 
 
 def _dense(x, p):
@@ -67,24 +102,34 @@ def make_adjacency(rel_ind, n_obj: int):
     return adj_s.transpose(1, 2), adj_o.transpose(1, 2)
 
 
-def _collect(source, adj, unit, ustate):
+def _collect(source, adj, unit, ustate, train: bool = False):
     """One collection unit: low-rank transform of source, BatchNorm if the
     unit has one, adjacency average (graph_conv_unit.py:28-36).  adj is
-    [B,T,S], source [B,S,L]."""
+    [B,T,S], source [B,S,L].  Returns (features, the unit's new BatchNorm
+    state)."""
     h = _dense(_dense(source, unit["lft"]), unit["rgt"])
     if "bn" in unit:
-        h = batch_norm_1d(h, unit["bn"], ustate)
+        if train:
+            b, s_, l_ = h.shape
+            y, ustate = batch_norm_1d_train(h.reshape(-1, l_), unit["bn"],
+                                            ustate)
+            h = y.reshape(b, s_, l_)
+        else:
+            h = batch_norm_1d(h, unit["bn"], ustate)
     collect = adj @ h
     degree = adj.sum(2)[..., None]
-    return torch.relu(collect / (degree + 1e-7))
+    return torch.relu(collect / (degree + 1e-7)), ustate
 
 
-def gcn_forward(params, state, x_obj, x_pred, rel_ind, cfg: ModelConfig):
+def gcn_forward(params, state, x_obj, x_pred, rel_ind, cfg: ModelConfig,
+                train: bool = False):
     """Stacked graph convolutions with periodic residuals
-    (gcn_backbone.py:29-53), eval mode: BatchNorm units read their running
-    statistics from ``state["gcn_bn"][layer][unit]``.
+    (gcn_backbone.py:29-53).  BatchNorm units read their running statistics
+    from ``state["gcn_bn"][layer][unit]`` at eval; in training they use
+    batch statistics and the returned state holds the updated running
+    statistics.
 
-    Returns (x_obj [B,N,L], x_pred [B,K,L], state).
+    Returns (x_obj [B,N,L], x_pred [B,K,L], new state).
     """
     if cfg.gcn_layers == 0:
         return x_obj, x_pred, state
@@ -94,26 +139,29 @@ def gcn_forward(params, state, x_obj, x_pred, rel_ind, cfg: ModelConfig):
     adj_o_t = adj_o.transpose(1, 2)
 
     res_obj, res_pred = x_obj, x_pred
+    new_bn = []
     for i, units in enumerate(params["gcn"]):
         us = state["gcn_bn"][i]
         # both node and edge updates read the *input* features of this layer
-        o_from_s = _collect(x_pred, adj_s, units[0], us[0])
-        o_from_o = _collect(x_pred, adj_o, units[1], us[1])
-        p_from_s = _collect(x_obj, adj_s_t, units[2], us[2])
-        p_from_o = _collect(x_obj, adj_o_t, units[3], us[3])
+        o_from_s, us0 = _collect(x_pred, adj_s, units[0], us[0], train)
+        o_from_o, us1 = _collect(x_pred, adj_o, units[1], us[1], train)
+        p_from_s, us2 = _collect(x_obj, adj_s_t, units[2], us[2], train)
+        p_from_o, us3 = _collect(x_obj, adj_o_t, units[3], us[3], train)
         x_obj = (o_from_s + o_from_o) / 2
         x_pred = (p_from_s + p_from_o) / 2
+        new_bn.append([us0, us1, us2, us3])
         if (i + 1) % cfg.gcn_residual == 0:
             x_obj = x_obj + res_obj
             res_obj = x_obj
             x_pred = x_pred + res_pred
             res_pred = x_pred
-    return x_obj, x_pred, state
+    return x_obj, x_pred, {**state, "gcn_bn": new_bn}
 
 
-def encode_graph(params, state, graph, cfg: ModelConfig):
+def encode_graph(params, state, graph, cfg: ModelConfig, train: bool = False):
     """fusion -> GCN on a SceneGraph of tensors.  Returns (x_obj, x_pred,
-    state)."""
+    new state)."""
     x_obj, x_pred = fuse_features(params, graph.obj_dist, graph.obj_fmap,
                                   graph.pred_dist, cfg)
-    return gcn_forward(params, state, x_obj, x_pred, graph.rel_ind, cfg)
+    return gcn_forward(params, state, x_obj, x_pred, graph.rel_ind, cfg,
+                       train)

@@ -1,10 +1,13 @@
-"""Sub-graph proposal network (sGPN) test path + sub-graph NMS.
+"""Sub-graph proposal network (sGPN): training branch, test path and
+sub-graph NMS.
 
 The counterpart of ``subgc_tpu/models/gpn.py`` (reference
-`models/lib/gpn.py`).  Every function takes optional leading image axes, so
-the per-image ``vmap`` of the JAX package is a batch dimension here: NMS runs
-for a whole image batch at once, and its parallel fixpoint iterates until
-every image in the batch has converged.
+`models/lib/gpn.py`).  Every test-path function takes optional leading
+image axes, so the per-image ``vmap`` of the JAX package is a batch
+dimension here: NMS runs for a whole image batch at once, and its parallel
+fixpoint iterates until every image in the batch has converged.  The
+training branch scores each sentence's positive and negative sub-graphs,
+with the BCE loss in its softplus form.
 """
 from __future__ import annotations
 
@@ -20,11 +23,63 @@ def _dense(x, p):
     return x @ p["w"] + p["b"]
 
 
-def gpn_score(params, read_out):
-    """MLP + sigmoid sub-graph score at eval (gpn.py:50-55)."""
+def graph_pooling(gpn_att, att_mask):
+    """Masked max + mean pooling over sub-graph nodes (gpn.py:174-185).
+
+    gpn_att [..., N, L], att_mask [..., N] -> [..., 2L].  Features are
+    zeroed outside the mask and the max runs over every row (post-GCN
+    features are >= 0, so a zeroed row never wins against the reference's
+    bmm)."""
+    clean = gpn_att * att_mask[..., None]
+    max_feat = clean.amax(dim=-2)
+    mean_feat = clean.sum(-2) / att_mask.sum(-1, keepdim=True)
+    return torch.cat([max_feat, mean_feat], dim=-1)
+
+
+def gpn_score(params, read_out, train: bool = False, generator=None,
+              return_logits: bool = False):
+    """MLP + sigmoid sub-graph score (gpn.py:50-55).  In training with a
+    ``generator``, the hidden layer takes the reference's fixed 0.5 dropout
+    (keep with probability 0.5, scale 2).  ``return_logits`` also returns
+    the pre-sigmoid logits, for the softplus form of :func:`bce_loss`."""
     g = params["gpn"]
     h = torch.relu(_dense(read_out, g["fc1"]))
-    return torch.sigmoid(_dense(h, g["fc2"])[..., 0])
+    if train and generator is not None:
+        keep = torch.rand(h.shape, generator=generator,
+                          device=h.device) < 0.5
+        h = torch.where(keep, h * 2.0, torch.zeros_like(h))
+    logits = _dense(h, g["fc2"])[..., 0]
+    scores = torch.sigmoid(logits)
+    return (scores, logits) if return_logits else scores
+
+
+def bce_loss(scores, targets, eps_clamp: float = 100.0, logits=None):
+    """torch.nn.BCELoss with its log clamp at -100 (gpn.py:33,57).
+
+    Given ``logits``, the logs are written in the softplus form (log
+    sigmoid(x) = -softplus(-x)): the same clamped values, but the gradient
+    stays finite when the sigmoid saturates to exactly 0 or 1 in float32.
+    Training uses this form.  The score form keeps the JAX package's guard
+    at the saturated endpoints (an inner ``where`` keeps ``log`` off 0), so
+    that its gradient is zero there and not 0 * inf = NaN, the NaN that
+    once ended long training runs at step ~248.
+    """
+    if logits is not None:
+        zero = torch.zeros_like(logits)
+        log_s = torch.clamp(-torch.logaddexp(-logits, zero), min=-eps_clamp)
+        log_1s = torch.clamp(-torch.logaddexp(logits, zero), min=-eps_clamp)
+    else:
+        pos, below = scores > 0.0, scores < 1.0
+        const = torch.full_like(scores, -eps_clamp)
+        log_s = torch.where(
+            pos, torch.clamp(torch.log(torch.where(pos, scores,
+                                                   torch.ones_like(scores))),
+                             min=-eps_clamp), const)
+        log_1s = torch.where(
+            below, torch.clamp(torch.log1p(-torch.where(
+                below, scores, torch.zeros_like(scores))), min=-eps_clamp),
+            const)
+    return -(targets * log_s + (1.0 - targets) * log_1s).mean()
 
 
 def readout_project(params, read_out):
@@ -32,6 +87,45 @@ def readout_project(params, read_out):
     (gpn.py:35-38)."""
     g = params["gpn"]
     return _dense(_dense(read_out, g["readout1"]), g["readout2"])
+
+
+def gpn_train_forward(params, x_obj, sub_obj_ind, sub_att_mask, img_ix,
+                      cfg: ModelConfig, train: bool = True, generator=None):
+    """Training branch (gpn.py:41-81).
+
+    x_obj [B, N, L] per-image GCN node features; sub_obj_ind / sub_att_mask
+    [S, 2, half, N] each sentence's positive (slot 0) and negative (slot 1)
+    sub-graphs; img_ix [S] the image of each sentence.
+
+    Returns (gpn_loss, scores [S, 2, half], att_feats [S, N, L], fc_feats
+    [S, 2L], att_masks [S, N], chosen_ind [S, N]) for the highest-scoring
+    positive of each sentence (the first on ties), whose read-out is
+    detached before the projection, as in the reference; chosen_ind, its
+    node indices, is what the JAX function appends under
+    ``return_chosen=True`` (``share_att_train`` builds its node-set
+    membership from it).  Under ``use_gt_subg`` every score is 1 (so the first
+    positive is chosen) and gpn_loss is None.
+    """
+    S, two, half, N = sub_obj_ind.shape
+    gathered = x_obj[img_ix[:, None, None, None], sub_obj_ind]
+    read_out = graph_pooling(gathered, sub_att_mask)           # [S,2,half,2L]
+    if cfg.use_gt_subg:
+        scores = torch.ones((S, two, half), dtype=torch.float32,
+                            device=x_obj.device)
+        gpn_loss = None
+    else:
+        scores, logits = gpn_score(params, read_out, train, generator,
+                                   return_logits=True)
+        targets = torch.stack([torch.ones_like(scores[:, 0]),
+                               torch.zeros_like(scores[:, 1])], dim=1)
+        gpn_loss = bce_loss(scores, targets, logits=logits)
+    best = torch.argmax(scores[:, 0, :], dim=-1)               # first max
+    ar = torch.arange(S, device=x_obj.device)
+    chosen_ind = sub_obj_ind[ar, 0, best]                      # [S, N]
+    att_feats = x_obj[img_ix[:, None], chosen_ind]             # [S, N, L]
+    att_masks = sub_att_mask[ar, 0, best]
+    fc_feats = readout_project(params, read_out[ar, 0, best].detach())
+    return gpn_loss, scores, att_feats, fc_feats, att_masks, chosen_ind
 
 
 class GPNTestOut(NamedTuple):

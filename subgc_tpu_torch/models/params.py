@@ -8,7 +8,9 @@ with the same keys as the JAX pytree (``subgc_tpu/models/params.py``):
 * LSTM cells keep PyTorch's stacked (i, f, g, o) gate order in ``w_ih``
   ``[in, 4R]``, ``w_hh`` ``[R, 4R]``, ``b_ih``, ``b_hh``.
 
-So a JAX checkpoint's arrays go through :func:`params_from_numpy` unchanged.
+So a JAX checkpoint's arrays go through :func:`params_from_numpy` unchanged,
+and :func:`params_to_numpy` + :func:`save_model_npz` write a ``model.npz``
+that the JAX package's ``load_checkpoint`` reads.
 """
 from __future__ import annotations
 
@@ -24,9 +26,12 @@ from ..device import resolve_device
 _SEP = "///"
 
 
-def params_from_numpy(tree, device="cuda"):
+def params_from_numpy(tree, device="cuda", requires_grad: bool = False):
     """Nested dict/list/tuple of arrays -> the same structure of tensors on
-    ``device``.  Floating arrays become float32, integer arrays int64."""
+    ``device``, each with storage of its own (an optimizer may update them
+    in place).  Floating arrays become float32, integer arrays int64.
+    ``requires_grad`` makes every floating tensor a leaf that requires grad
+    (the trainable params; never the model state)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -35,13 +40,27 @@ def params_from_numpy(tree, device="cuda"):
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
         a = np.asarray(x)
-        if np.issubdtype(a.dtype, np.floating):
-            a = a.astype(np.float32, copy=False)
+        floating = np.issubdtype(a.dtype, np.floating)
+        if floating:
+            a = a.astype(np.float32)
         elif np.issubdtype(a.dtype, np.integer):
-            a = a.astype(np.int64, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            a = a.astype(np.int64)
+        t = torch.from_numpy(np.array(a, order="C", copy=True)).to(dev)
+        return t.requires_grad_() if requires_grad and floating else t
 
     return conv(tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: the same structure of
+    numpy arrays on the host (detached)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
 
 
 def _linear(rng, n_in, n_out, init="torch", bias="default"):
@@ -86,11 +105,15 @@ def _lstm_cell(rng, n_in, n_hid):
 
 def init_params_numpy(cfg: ModelConfig, seed: int = 0,
                       n_obj_names: Optional[int] = None,
-                      n_pred_names: Optional[int] = None):
+                      n_pred_names: Optional[int] = None,
+                      obj_glove: Optional[np.ndarray] = None,
+                      pred_glove: Optional[np.ndarray] = None):
     """(params, state) as numpy arrays, with the shapes and distributions of
     the JAX package's ``init_params`` (torch ``nn.Linear`` defaults, N(0,
     0.001) GCN units with zero biases, zero-bias sGPN layers, N(0, 1)
-    embeddings), drawn from ``np.random.default_rng(seed)``.
+    embeddings, or the GloVe tables ``obj_glove`` / ``pred_glove`` of
+    ``io/glove.py::class_embeddings`` for the class embeddings), drawn from
+    ``np.random.default_rng(seed)``.
 
     BatchNorm layers (``gcn_bn``: ``bn`` per GCN unit; ``use_bn`` 1/2:
     ``att_bn0``/``att_bn1`` in the decoder) start at scale 1, bias 0, and
@@ -105,11 +128,16 @@ def init_params_numpy(cfg: ModelConfig, seed: int = 0,
     def normal(shape):
         return rng.standard_normal(shape).astype(np.float32)
 
+    def table(glove, n):
+        if glove is not None:
+            return np.asarray(glove, np.float32)
+        return normal((n, E))
+
     fusion = {"obj_v_proj": _linear(rng, cfg.att_feat_size, L)}
     if cfg.noun_fuse:
-        fusion["obj_emb"] = normal((n_obj_names, E))
+        fusion["obj_emb"] = table(obj_glove, n_obj_names)
         fusion["obj_emb_proj"] = _linear(rng, E, L)
-    fusion["pred_emb"] = normal((n_pred_names, E))
+    fusion["pred_emb"] = table(pred_glove, n_pred_names)
     fusion["pred_emb_proj"] = _linear(rng, E, L)
     params = {"fusion": fusion}
 
@@ -161,19 +189,48 @@ def init_params_numpy(cfg: ModelConfig, seed: int = 0,
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 n_obj_names: Optional[int] = None,
-                n_pred_names: Optional[int] = None):
+                n_pred_names: Optional[int] = None,
+                requires_grad: bool = False):
     """(params, state) as tensors on ``device``; see
-    :func:`init_params_numpy`.  A state from elsewhere (a JAX checkpoint's
-    ``"state"``, the JAX package's ``init_params``) goes onto the device the
-    same way, through :func:`params_from_numpy`."""
+    :func:`init_params_numpy`.  ``requires_grad`` makes the params (not the
+    state) leaves that require grad, for training.  A state from elsewhere
+    (a JAX checkpoint's ``"state"``, the JAX package's ``init_params``)
+    goes onto the device the same way, through :func:`params_from_numpy`."""
     dev = resolve_device(device)
     params, state = init_params_numpy(cfg, seed, n_obj_names, n_pred_names)
-    return params_from_numpy(params, dev), params_from_numpy(state, dev)
+    return (params_from_numpy(params, dev, requires_grad),
+            params_from_numpy(state, dev))
+
+
+def _flatten(tree, prefix=""):
+    """Nested dict/list/tuple -> {path key: array}, the ``model.npz`` format
+    of the JAX package's ``train/checkpoint.py`` (``///``-joined keys; list
+    and tuple lengths under ``__len__``, ``{}`` as ``__empty__``, None as
+    ``__none__``)."""
+    def key(k):
+        return f"{prefix}{_SEP}{k}" if prefix else str(k)
+
+    out = {}
+    if isinstance(tree, dict):
+        if not tree:
+            return {key("__empty__"): np.asarray(0)}
+        for k, v in tree.items():
+            out.update(_flatten(v, key(k)))
+    elif isinstance(tree, (list, tuple)):
+        out[key("__len__")] = np.asarray([len(tree),
+                                          int(isinstance(tree, tuple))])
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, key(i)))
+    elif tree is None:
+        out[key("__none__")] = np.asarray(0)
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
 
 
 def _unflatten(flat):
     """Rebuild the nested structure of a ``model.npz`` from its path keys
-    (the JAX package's ``train/checkpoint.py`` format)."""
+    (the inverse of :func:`_flatten`)."""
     if list(flat.keys()) == [""]:
         return flat[""]
     root = {}
@@ -198,6 +255,12 @@ def _unflatten(flat):
         return {k: _rebuild(v) for k, v in node.items()}
 
     return _rebuild(root)
+
+
+def save_model_npz(path: str, tree) -> None:
+    """Write a nested tree of arrays or tensors as ``model.npz`` (for a
+    training checkpoint: ``{"params": ..., "state": ...}``)."""
+    np.savez(path, **_flatten(params_to_numpy(tree)))
 
 
 def load_model_npz(path: str):

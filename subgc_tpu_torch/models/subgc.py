@@ -1,10 +1,13 @@
-"""Test path: encoder + sGPN + NMS -> decode-ready features.
+"""Model orchestration: the teacher-forced training forward, and the test
+path's encoder + sGPN + NMS -> decode-ready features.
 
-The counterpart of the test side of ``subgc_tpu/models/subgc.py`` (the
-encoder+sGPN+NMS prefix of the reference's `_sample`, `AttModel.py:179-276`):
-the Sub-GC branch batched over images, with NMS skipped under SCT, and the
+The counterpart of ``subgc_tpu/models/subgc.py``: ``train_forward`` is the
+reference's `_forward` (`AttModel.py:122-177`); the test side is the
+encoder+sGPN+NMS prefix of its `_sample` (`AttModel.py:179-276`), the
+Sub-GC branch batched over images, with NMS skipped under SCT, and the
 Full-GC branch for one image.  The JAX package vmaps sGPN+NMS per image;
-here the image axis is a batch dimension of every op.
+here the image axis is a batch dimension of every op.  The test entry
+points run without autograd.
 """
 from __future__ import annotations
 
@@ -33,6 +36,59 @@ def _full_graph_readout(params, read_out):
     ro = params["readout"]
     return (read_out @ ro["readout1"]["w"] + ro["readout1"]["b"]) \
         @ ro["readout2"]["w"] + ro["readout2"]["b"]
+
+
+def _full_graph_mask(S, cfg: ModelConfig, device):
+    """[S, obj_num] attention mask over every node but the dummy."""
+    m = torch.zeros((S, cfg.obj_num), dtype=torch.float32, device=device)
+    m[:, :cfg.obj_num - 1] = 1.0
+    return m
+
+
+def train_forward(params, state, graph: SceneGraph, labels, sub_obj_ind,
+                  sub_att_mask, img_ix, cfg: ModelConfig, train: bool = True,
+                  generator=None, ss_prob=None):
+    """Teacher-forced forward (JAX ``subgc.py:36-90``).
+
+    labels [S, T+2] (S = B * seq_per_img, image-major); sub_* [S, 2, half,
+    N]; img_ix [S].  Sub-GC attends over each sentence's best-scoring
+    positive sub-graph (sGPN BCE loss); Full-GC over every node of its
+    image, with the detached mean read-out; ``share_att_train`` over the
+    image's streams through node-set membership.  ``train`` selects batch
+    statistics in BatchNorm and dropout drawn from ``generator``.
+
+    Returns (logprobs [S, T+1, V+1], gpn_loss or None, scores, new_state):
+    new_state holds the updated BatchNorm running statistics (``gcn_bn``,
+    and ``att_bn`` under ``use_bn``).
+    """
+    x_obj, _, new_state = E.encode_graph(params, state, graph, cfg, train)
+    chosen_ind = None
+    if cfg.use_gpn:
+        gpn_loss, scores, att_feats, fc_feats, att_masks, chosen_ind = \
+            G.gpn_train_forward(params, x_obj, sub_obj_ind, sub_att_mask,
+                                img_ix, cfg, train, generator)
+    else:
+        # Full-GC: the full graph per sentence (AttModel.py:140-149)
+        gpn_loss, scores = None, None
+        att_feats = x_obj[img_ix]                       # [S, N, L]
+        fc_feats = _full_graph_readout(params, att_feats.mean(1).detach())
+        att_masks = _full_graph_mask(att_feats.shape[0], cfg, x_obj.device)
+
+    if cfg.share_att_train:
+        mem = (G.node_membership(chosen_ind, att_masks, cfg.obj_num)
+               if cfg.use_gpn else att_masks)
+        feats = D.prepare_features_shared_train(params, fc_feats, x_obj, mem,
+                                                cfg, train, generator)
+        att_bn = state.get("att_bn")
+    else:
+        feats, att_bn = D.prepare_features_bn(params, fc_feats, att_feats,
+                                              att_masks, cfg, train,
+                                              generator, state.get("att_bn"))
+    if cfg.use_bn:
+        new_state = {**new_state, "att_bn": att_bn}
+    logprobs = D.forward_teacher(params, feats, labels, cfg, train,
+                                 generator, ss_prob)
+    return logprobs, gpn_loss, scores, new_state
 
 
 def _encode_one(params, x_obj, subs: SubgraphSet, cfg: ModelConfig,
@@ -64,6 +120,7 @@ def _encode_one(params, x_obj, subs: SubgraphSet, cfg: ModelConfig,
     return feats, out.scores[rows, keep_ind], keep_ind, keep_valid
 
 
+@torch.no_grad()
 def encode_images_batched(params, state, graph: SceneGraph,
                           subs: SubgraphSet, cfg: ModelConfig,
                           ecfg: EvalConfig) -> EncodedImage:
@@ -96,6 +153,7 @@ def encode_images_batched(params, state, graph: SceneGraph,
                         keep_ind=flat(keep_ind), keep_valid=flat(keep_valid))
 
 
+@torch.no_grad()
 def encode_image(params, state, graph: SceneGraph,
                  subs: Optional[SubgraphSet], cfg: ModelConfig,
                  ecfg: EvalConfig) -> EncodedImage:
@@ -113,10 +171,9 @@ def encode_image(params, state, graph: SceneGraph,
     att_feats = x_obj[0:1]
     fc_feats = _full_graph_readout(params, att_feats.mean(1))
     dev = x_obj.device
-    att_masks = torch.zeros((1, cfg.obj_num), dtype=torch.float32, device=dev)
-    att_masks[:, :cfg.obj_num - 1] = 1.0
-    feats = D.prepare_features(params, fc_feats, att_feats, att_masks, cfg,
-                               bn_state=state.get("att_bn"))
+    att_masks = _full_graph_mask(1, cfg, dev)
+    feats, _ = D.prepare_features_bn(params, fc_feats, att_feats, att_masks,
+                                     cfg, bn_state=state.get("att_bn"))
     return EncodedImage(
         feats=feats, scores=torch.ones((1,), dtype=torch.float32, device=dev),
         keep_ind=torch.zeros((1,), dtype=torch.int64, device=dev),

@@ -27,7 +27,10 @@ does about it is written at the top of the CUDA source.  The tile plan
 CPU tests can check it.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises.
+raises.  The kernels are forward-only, as the Pallas kernels are: asked for
+a gradient (grad mode on and an input that requires grad) they raise rather
+than return outputs that autograd cannot see through.  Training attends
+through ``models/decoder.py::attention_teacher`` instead.
 """
 from __future__ import annotations
 
@@ -155,6 +158,17 @@ def _device_check(op, h):
         raise ValueError(f"{op}: no kernel for {h.device}")
 
 
+def _refuse_grad(op, tensors):
+    """Raise if autograd would need a gradient through the kernel: its
+    outputs come from raw pointers and carry no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernels are forward-only, as the Pallas kernels "
+            f"are; call it under torch.no_grad() or on inputs that do not "
+            f"require grad (training attends through "
+            f"models.decoder.attention_teacher)")
+
+
 def _raise_on(op, err):
     if err != 0:
         raise RuntimeError(f"{op} kernel failed: cudaError_t {err}")
@@ -182,6 +196,7 @@ def _check_project(h, wh, bh):
 def run_attention_project(h, wh, bh, plan):
     """The projection kernel and its split sum on CUDA tensors, at ``plan``."""
     global PROJECT_LAUNCHES
+    _refuse_grad("attention_project", (h, wh, bh))
     Q, Hin, H = _check_project(h, wh, bh)
     part = project_scratch(plan, Q, H, h.device)
     ah = torch.empty((Q, H), dtype=torch.float32, device=h.device)
@@ -247,6 +262,7 @@ def run_shared_attention(args, plan):
     """Both kernels of :func:`shared_attention` on CUDA tensors, at
     ``plan``."""
     global LAUNCHES, PROJECT_LAUNCHES
+    _refuse_grad("shared_attention", args)
     S, B, R, G, N, H, D = _check(*args)
     if plan.rows_per_block * B > MAX_QUERIES_PER_BLOCK:
         raise ValueError(f"shared_attention: {plan.rows_per_block} rows of "
@@ -320,6 +336,7 @@ def run_row_attention(args, plan):
     """Both kernels of :func:`row_attention` on CUDA tensors, at ``plan``
     (one row per attention block)."""
     global ROW_LAUNCHES, PROJECT_LAUNCHES
+    _refuse_grad("row_attention", args)
     R, Hin, N, H, D = _check_rows(*args)
     dev = args[0].device
     part = project_scratch(plan, R, H, dev)

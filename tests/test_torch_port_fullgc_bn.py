@@ -196,10 +196,11 @@ def _features(fn, cfg, params, bn_state, fc, x, oi, am, xp):
     if fn == "att_embed":
         att = mod.att_embed(params, xp(x[oi]), xp(am), cfg,
                             bn_state=bn_state)
-        return {"att": att[0] if mod is JD else att}
+        return {"att": att[0]}
     if fn == "prepare_features":
-        f = mod.prepare_features(params, xp(fc), xp(x[oi]), xp(am), cfg,
-                                 bn_state=bn_state)
+        prep = JD.prepare_features if mod is JD else D.prepare_features_bn
+        f = prep(params, xp(fc), xp(x[oi]), xp(am), cfg, bn_state=bn_state)
+        f = f if mod is JD else f[0]
     else:
         f = mod.prepare_features_nodes(
             params, xp(fc), xp(x), ind, xp(am), cfg, bn_state=bn_state,

@@ -280,3 +280,48 @@ def test_kernels_repeat_bitwise_on_card(op):
     for a, b in zip(first if op != "project" else [first],
                     second if op != "project" else [second]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op", ["shared", "row", "project"])
+def test_launchers_refuse_gradients_before_launching(op):
+    """The kernels are forward-only: asked for a gradient, the launchers
+    raise before building or launching anything (here on CPU tensors, so
+    nothing could launch), and never detach silently."""
+    if op == "shared":
+        x = _inputs("image")
+        call = lambda: A.run_shared_attention(x, A.attention_plan(
+            37, 2, 5, 64, 32))
+    elif op == "row":
+        x = _row_inputs()
+        call = lambda: A.run_row_attention(x, A.attention_plan(
+            9, 1, 9, 64, 32))
+    else:
+        x = _project_inputs(9, 64, 32)
+        call = lambda: A.run_attention_project(*x, A.project_plan(9, 64, 32))
+    x[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["shared", "row", "project"])
+def test_wrappers_refuse_gradients_on_card(op):
+    """On the card each wrapper raises when autograd would need a gradient
+    through the kernel (grad mode on, an input requiring grad), and runs
+    under torch.no_grad() with outputs that carry no grad_fn."""
+    _cuda()
+    if op == "shared":
+        x, fn = [t.cuda() for t in _inputs("image")], A.shared_attention
+    elif op == "row":
+        x, fn = [t.cuda() for t in _row_inputs()], A.row_attention
+    else:
+        x = [t.cuda() for t in _project_inputs(9, 64, 32)]
+        fn = A.attention_project
+    x[-1].requires_grad_()                  # a weight, as in training
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fn(*x)
+    with torch.no_grad():
+        out = fn(*x)
+    torch.cuda.synchronize()
+    for t in (out if isinstance(out, tuple) else (out,)):
+        assert t.grad_fn is None

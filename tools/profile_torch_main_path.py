@@ -2,6 +2,7 @@
 """Where the port's test paths spend their time on one NVIDIA card.
 
     python3 tools/profile_torch_main_path.py [batch_images] [MODEL_TYPE]
+    python3 tools/profile_torch_main_path.py train [MODEL_TYPE]
 
 Runs a test preset of ``chip_smoke.py`` (default Sub_GC_Kar: beam 2, NMS
 0.75, keep 10; any of the eight) at full model width with random weights on
@@ -19,6 +20,14 @@ the image-by-image decode under ``cProfile``).  Then two batches under
 busy share (the sum of kernel times over the wall time; one stream, so
 kernels do not overlap), the kernel launches per batch, and the kernels and
 operators that take the most device time.
+
+``train`` profiles the train step of a train preset (default Sub_GC_Kar)
+at full width at the preset's batch (64 images, 100 for Full_GC_Kar) on
+``chip_smoke.py``'s synthetic train batch, dropout on, the hoisted step
+past the LR warmup: after two warm-up steps, ms per step over five steps
+unprofiled (images/s) and the peak memory; then two steps under
+``torch.profiler``: wall, device busy share, kernel launches per step and
+the kernels that take the most device time.
 """
 import cProfile
 import io
@@ -43,10 +52,70 @@ from subgc_tpu_torch.graph import to_device  # noqa: E402
 from subgc_tpu_torch.models.params import init_params_numpy  # noqa: E402
 
 
+def _print_profile(prof, wall_ms, n, unit):
+    """Busy share, launches per ``unit`` and the top kernels of a
+    profiled window of ``n`` units."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        sys.exit("the profiler recorded no device events")
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"{n} {unit}s: wall {wall_ms:.2f} ms ({wall_ms / n:.2f} ms/{unit}), "
+          f"device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% "
+          f"of wall, {len(kernels) / n:.0f} kernel launches/{unit}")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=20, max_name_column_width=60))
+
+
+def profile_train(preset):
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.train.step import (batch_to_device,
+                                            init_train_state,
+                                            make_train_step)
+    cfg, tcfg, _ = build_configs(preset, mode="train")
+    dev = torch.device("cuda")
+    pn, state = init_params_numpy(cfg, seed=0)
+    ts = init_train_state(params_from_numpy(pn, dev, requires_grad=True),
+                          params_from_numpy(state, dev), tcfg,
+                          step=tcfg.warmup_n + 1)
+    batch = batch_to_device(synthetic_train_batch(cfg, tcfg.batch_size,
+                                                  seed=0), dev)
+    step = make_train_step(cfg, tcfg, ss_active=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):                              # warm-up
+        ts, m = step(ts, batch, gen, 0, 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ts, m = step(ts, batch, gen, 0, 0.0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 5
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(f"{preset} train step, {tcfg.batch_size} images "
+          f"({5 * tcfg.batch_size} sentences, {cfg.seq_length + 1} steps): "
+          f"unprofiled {ms:.2f} ms/step = {tcfg.batch_size * 1e3 / ms:.1f} "
+          f"images/s; loss {m['loss'].item():.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ts, m = step(ts, batch, gen, 0, 0.0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    _print_profile(prof, wall_ms, 2, "step")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if len(sys.argv) > 1 and sys.argv[1] == "train":
+        profile_train(sys.argv[2] if len(sys.argv) > 2 else "Sub_GC_Kar")
+        return
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else cs.BATCH_IMAGES
     preset = sys.argv[2] if len(sys.argv) > 2 else "Sub_GC_Kar"
     cfg, ecfg, _ = build_configs(preset)
@@ -113,12 +182,6 @@ def main():
             run_batch()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    avgs = prof.key_averages()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        sys.exit("the profiler recorded no device events")
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -134,12 +197,8 @@ def main():
         print("no run_test_split route for Full-GC; host functions by own "
               "time in one batch under cProfile:")
     print(host_top.getvalue())
-    print(f"{n_batches} batches of {batch} images: wall {wall_ms:.2f} ms "
-          f"({wall_ms / n_batches:.2f} ms/batch), device busy "
-          f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of wall, "
-          f"{len(kernels) / n_batches:.0f} kernel launches/batch")
-    print(avgs.table(sort_by="self_device_time_total", row_limit=20,
-                     max_name_column_width=60))
+    print(f"batches of {batch} images:")
+    _print_profile(prof, wall_ms, n_batches, "batch")
 
 
 if __name__ == "__main__":
