@@ -41,7 +41,10 @@ Phases (any failure exits non-zero before the last line is printed):
    one image: identical keep sets and >= 95% identical captions;
 9. Sub_GC_S_MRNN (top-k sampling on the same fan-out): at the_k=1 the
    tokens equal phase 8's greedy tokens exactly; at the_k=3 every caption is
-   non-empty and every recorded logprob is finite and <= 0;
+   ``decode_sequence`` of its tokens, no token lies outside the vocabulary,
+   nothing follows a caption's first EOS (what holds for trained weights
+   too, which may end a caption at once), and every recorded logprob is
+   finite and <= 0;
 10. the beam-shared kernel at 3 beams in the per-sub-graph layout (S=1 and
     S=32 rows), Full_GC_Kar's shape, against its plain version (same
     tolerances);
@@ -63,6 +66,28 @@ Phases (any failure exits non-zero before the last line is printed):
     score exactly 1, and phase 12's checks; then the beam-shared kernel
     alone at the CTL presets' shape (image-shared, S=512, G=16, 2 beams)
     against its plain version;
+13a. language eval (``align_predictions`` + ``language_eval`` at oracle 5:
+    BLEU 1-4, METEOR, ROUGE-L, CIDEr-D, SPICE) of phase 4's card captions
+    against 5 GT captions per image drawn from the vocabulary with a seed:
+    every score matrix finite and in range (CIDEr-D in [0, 10], the others
+    in [0, 1]); phase 5's CPU captions and the card's first batch scored
+    alike, with identical per-image scores for every image whose 5 ranked
+    captions are identical on both (>= 75% of the batch); host seconds per
+    image;
+13b. diversity (``diversity_report`` with mBLEU-4) of phase 8's card
+    captions: distinct, n-gram and mBLEU-4 finite and in [0, 1];
+13c. controllability (``controllability_scores``) of phase 12's card
+    captions against seeded GT groups and seeded noun vectors: NounIoU and
+    every metric finite;
+13d. the rerank NN search (``find_nn_images``) on the card at Karpathy COCO
+    size: 5,000 test against 113,287 train images, 2048-d float32 features
+    made on the card from a seed, top 1000; median ms against the bound of
+    its matmul; then 256 test rows against 20,000 train rows of integer
+    features in [-4, 4] (exact float32 distances) with duplicated rows and
+    a tie group across rank 1000: indices equal to a float64 numpy
+    argsort with index tie-break, rank for rank; then ``consensus_rerank``
+    (k 60, m 125) of 8 images of phase 4's captions over that search's
+    neighbours, with host seconds (printed as an ``{"eval": ...}`` line);
 14. both kernels alone at the val passes' shapes against their plain
     versions (same tolerances): per-row at R=320, beam-shared image-shared
     at S=320, G=64, one beam; then
@@ -346,7 +371,7 @@ class MemoryLoader:
         return iter(self.examples[:n])
 
 
-def check_predictions(preds, n_images, keep, bucket=BUCKET):
+def check_predictions(preds, n_images, keep, bucket=BUCKET, nonempty=True):
     if len(preds) != n_images:
         fail(f"{len(preds)} predictions for {n_images} images")
     for p in preds:
@@ -360,8 +385,29 @@ def check_predictions(preds, n_images, keep, bucket=BUCKET):
         if len(set(ind.tolist())) != len(ind) or ind.min() < 0 \
                 or ind.max() >= bucket:
             fail(f"image {p['image_id']}: bad keep set {ind}")
-        if not all(isinstance(c, str) and c for c in p["caption"]):
+        if not all(isinstance(c, str) and (c or not nonempty)
+                   for c in p["caption"]):
             fail(f"image {p['image_id']}: empty caption")
+
+
+def check_sampled_tokens(label, preds, vocab, ecfg):
+    """What holds for trained weights too: every caption is
+    ``decode_sequence`` of its tokens, every token lies in the vocabulary
+    (0 = EOS) and nothing follows a caption's first EOS."""
+    from subgc_tpu_torch import decode_sequence
+    for p in preds:
+        tok = np.asarray(p["tokens"])
+        if tok.min() < 0 or tok.max() > len(vocab):
+            fail(f"{label}: image {p['image_id']} has tokens outside the "
+                 f"vocabulary: {tok.min()}..{tok.max()}")
+        ended = np.cumsum(tok == 0, axis=1) > 0
+        if (tok[ended] != 0).any():
+            fail(f"{label}: image {p['image_id']} has tokens after an EOS")
+        caps = decode_sequence(vocab, tok,
+                               remove_bad_endings=ecfg.remove_bad_endings)
+        if caps != list(p["caption"]):
+            fail(f"{label}: image {p['image_id']}'s captions are not its "
+                 f"tokens decoded")
 
 
 def phase_times(params, state, examples, cfg, ecfg, device):
@@ -554,8 +600,10 @@ def run_topk(params, state, vocab, examples, greedy_preds):
                  f"greedy decode")
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
-        batch_images=FANOUT_BATCH, device="cuda")
-    check_predictions(preds, len(examples), ecfg.gpn_max_subg, FANOUT_BUCKET)
+        batch_images=FANOUT_BATCH, keep_tokens=True, device="cuda")
+    check_predictions(preds, len(examples), ecfg.gpn_max_subg, FANOUT_BUCKET,
+                      nonempty=False)
+    check_sampled_tokens("top-k at the_k=3", preds, vocab, ecfg)
     dev = torch.device("cuda")
     graph, subs = _stack_examples(examples[:FANOUT_BATCH])
     out = make_batched_infer_fn(cfg, ecfg)(
@@ -566,8 +614,9 @@ def run_topk(params, state, vocab, examples, greedy_preds):
         fail("top-k at the_k=3: a recorded logprob is not finite and <= 0")
     print(f"top-k fan-out (Sub_GC_S_MRNN): the_k=1 tokens equal the greedy "
           f"tokens; the_k={ecfg.the_k}: {n_caps} captions in {wall:.3f} s = "
-          f"{n_caps / wall:.1f} captions/s, none empty; {lp.numel()} "
-          f"recorded logprobs finite and <= 0")
+          f"{n_caps / wall:.1f} captions/s, each its tokens decoded, "
+          f"nothing after an EOS; {lp.numel()} recorded logprobs finite and "
+          f"<= 0")
 
 
 def make_sct_examples(cfg, n_images, bucket, seed, gt=False):
@@ -716,7 +765,8 @@ def check_sct_predictions(preds, examples, label, ones):
 
 def run_sct(preset, params_np, state_np, vocab, seed):
     """Phases 12-13: a controllability preset on the card and, on the first
-    batch, on the CPU.  Returns the beam-shared kernel's launches."""
+    batch, on the CPU.  Returns the beam-shared kernel's launches and the
+    card's predictions."""
     import torch
     from subgc_tpu_torch import build_configs, params_from_numpy, \
         run_test_split
@@ -762,7 +812,230 @@ def run_sct(preset, params_np, state_np, vocab, seed):
     if n_same < 0.95 * n_total:
         fail(f"{preset}: only {n_same}/{n_total} captions agree between card "
              f"and cpu")
-    return launches
+    return launches, preds
+
+
+ORACLE = 5                # the oracle-5 protocol (reproduce's default)
+METRIC_MAX = {"Bleu_1": 1, "Bleu_2": 1, "Bleu_3": 1, "Bleu_4": 1,
+              "METEOR": 1, "ROUGE_L": 1, "CIDEr": 10, "SPICE": 1}
+NN_TRAIN = 113287         # Karpathy COCO: 82,783 train + 30,504 restval
+NN_TEST = 5000            # Karpathy COCO test images
+NN_DIM = 2048             # ResNet-101 pooled features
+NN_K = 1000               # the rerank CLI's --num_NN
+
+
+def seeded_sentences(rng, words, n):
+    """n sentences of 6-13 words drawn from ``words`` (a numpy array)."""
+    return [" ".join(words[rng.randint(len(words), size=rng.randint(6, 14))])
+            for _ in range(n)]
+
+
+def check_scores(label, scores, n_images):
+    for m, top in METRIC_MAX.items():
+        a = scores[m]
+        if a.shape != (ORACLE, n_images) or not np.isfinite(a).all() \
+                or a.min() < 0 or a.max() > top:
+            fail(f"{label}: {m} scores of shape {a.shape} in "
+                 f"[{a.min()}, {a.max()}], expected ({ORACLE}, {n_images}) "
+                 f"in [0, {top}]")
+    if not all(np.isfinite(v) for v in scores["oracle"].values()):
+        fail(f"{label}: oracle scores {scores['oracle']}")
+
+
+def run_language_eval(preds, cpu_preds, words):
+    """Phase 13a.  Returns (stats, the GT captions by image id)."""
+    from subgc_tpu_torch.eval import (bleu, cider, meteor, rouge, spice,
+                                      tokenizer)
+    from subgc_tpu_torch.eval.sentence import align_predictions, \
+        language_eval
+    rng = np.random.RandomState(50)
+    gts = {p["image_id"]: seeded_sentences(rng, words, 5) for p in preds}
+    t0 = time.perf_counter()
+    scores = language_eval(gts, align_predictions(preds, ORACLE),
+                           verbose=False)
+    sec = time.perf_counter() - t0
+    check_scores("language eval (card)", scores, len(preds))
+    # each scorer alone on the rank-0 captions
+    gts_t = tokenizer.tokenize({k: [{"caption": c} for c in v]
+                                for k, v in gts.items()})
+    res_t = tokenizer.tokenize({p["image_id"]: [{"caption": p["caption"][0]}]
+                                for p in preds})
+    per_metric = {}
+    for name, fn in (("BLEU", bleu.compute_bleu),
+                     ("METEOR", meteor.compute_meteor),
+                     ("ROUGE_L", rouge.compute_rouge),
+                     ("CIDEr", cider.compute_cider),
+                     ("SPICE", spice.compute_spice)):
+        t1 = time.perf_counter()
+        fn(gts_t, res_t)
+        per_metric[name] = 1e3 * (time.perf_counter() - t1) / len(preds)
+
+    # the first batch on the card and on the CPU, over the same GT
+    card = align_predictions(preds[:len(cpu_preds)], ORACLE)
+    cpu = align_predictions(cpu_preds, ORACLE)
+    gts1 = {p["image_id"]: gts[p["image_id"]] for p in cpu}
+    s_card = language_eval(gts1, card, verbose=False)
+    s_cpu = language_eval(gts1, cpu, verbose=False)
+    check_scores("language eval (cpu)", s_cpu, len(cpu))
+    same = [i for i, (a, b) in enumerate(zip(card, cpu))
+            if a["image_id"] == b["image_id"] and a["caption"] == b["caption"]]
+    for m in METRIC_MAX:
+        if not np.array_equal(s_card[m][:, same], s_cpu[m][:, same]):
+            fail(f"language eval: {m} differs between card and cpu on "
+                 f"images with identical captions")
+    if len(same) < 0.75 * len(cpu):
+        fail(f"language eval: only {len(same)}/{len(cpu)} images have the "
+             f"same {ORACLE} ranked captions on card and cpu")
+    top1 = {m: round(float(v), 4) for m, v in scores["top1"].items()}
+    print(f"language eval (oracle {ORACLE}) of {len(preds)} images' card "
+          f"captions: {sec:.3f} s on the host = {1e3 * sec / len(preds):.2f} "
+          f"ms per image; rank 0 alone, ms per image: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in per_metric.items())
+          + f"; top-1 {top1}; {len(same)}/{len(cpu)} first-batch images "
+          f"with identical ranked captions score identically on card and "
+          f"cpu")
+    return {"images": len(preds), "oracle_num": ORACLE, "s": sec,
+            "ms_per_image": 1e3 * sec / len(preds),
+            "rank0_ms_per_image": per_metric,
+            "card_cpu_identical_images": len(same),
+            "first_batch_images": len(cpu)}, gts
+
+
+def run_diversity(greedy_preds):
+    """Phase 13b."""
+    from subgc_tpu_torch.eval.diversity import diversity_report
+    t0 = time.perf_counter()
+    rep = diversity_report(greedy_preds, evaluate_mb4=True)
+    sec = time.perf_counter() - t0
+    vals = rep["distinct"] + list(rep["ngram"].values()) + rep["mBLEU4"]
+    if not all(np.isfinite(v) and 0 <= v <= 1 for v in vals):
+        fail(f"diversity: {rep}")
+    print(f"diversity of {len(greedy_preds)} images' card captions "
+          f"(Sub_GC_MRNN): {sec:.3f} s on the host; {json.dumps(rep)}")
+    return {"images": len(greedy_preds), "s": sec, **rep}
+
+
+def run_controllability(ctl_preds, words):
+    """Phase 13c."""
+    from subgc_tpu_torch.eval.controllability import (NounIoU,
+                                                      controllability_scores)
+    rng = np.random.RandomState(60)
+    nouns = {w: rng.randn(300).astype("f") for w in words[::2]}
+    groups = [seeded_sentences(rng, words, rng.randint(1, 4))
+              for p in ctl_preds for _ in p["caption"]]
+    t0 = time.perf_counter()
+    out = controllability_scores(ctl_preds, [p["image_id"]
+                                             for p in ctl_preds],
+                                 groups, NounIoU(nouns))
+    sec = time.perf_counter() - t0
+    if not (all(np.isfinite(v) for v in out.values())
+            and 0 <= out["NounIoU"] <= 1):
+        fail(f"controllability: {out}")
+    print(f"controllability of {len(groups)} card captions "
+          f"(Sub_GC_Flickr_CTL): {sec:.3f} s on the host; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return {"captions": len(groups), "s": sec, **out}
+
+
+def nn_distance_ms(te, tr, batch=512):
+    """Median device ms of the NN search's distance matmuls alone (every
+    chunk's ``|a|^2 + |b|^2 - 2ab``, no selection), CUDA events."""
+    import torch
+    tr_sq = (tr * tr).sum(-1)
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for i in range(0, te.shape[0], batch):
+            a = te[i:i + batch]
+            (a * a).sum(-1, keepdim=True) + tr_sq[None, :] - 2.0 * a @ tr.T
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def run_nn_search(preds, gts, words):
+    """Phase 13d: the rerank NN search at Karpathy COCO size, its exact
+    check on integer features, then the consensus step."""
+    import torch
+    from subgc_tpu_torch.eval.rerank import (consensus_rerank,
+                                             find_nn_images,
+                                             select_top_captions)
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    tr = torch.rand((NN_TRAIN, NN_DIM), generator=gen, device="cuda")
+    te = torch.rand((NN_TEST, NN_DIM), generator=gen, device="cuda")
+    find_nn_images(te[:512], tr, NN_K)                       # warm-up
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nn = find_nn_images(te, tr, NN_K)       # returns host indices
+        ms.append(1e3 * (time.perf_counter() - t0))
+    if nn.shape != (NN_TEST, NN_K) or nn.min() < 0 or nn.max() >= NN_TRAIN \
+            or any(len(set(r)) != NN_K for r in nn[:64].tolist()):
+        fail(f"NN search: indices of shape {nn.shape} out of range or "
+             f"repeated")
+    dist_ms = nn_distance_ms(te, tr)
+    flops_ms = 1e3 * 2.0 * NN_TEST * NN_TRAIN * NN_DIM / F32_PEAK
+    bytes_ms = 1e3 * (4 * (NN_TRAIN + NN_TEST) * NN_DIM + 8 * nn.size) \
+        / HBM_RATE
+    del tr, te
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(71)
+    tr_i = rng.randint(-4, 5, (20000, NN_DIM)).astype(np.float32)
+    tr_i[10000:12000] = tr_i[0]       # 2,001 rows at one distance ...
+    tr_i[15000:17000] = tr_i[1000:3000]
+    te_i = rng.randint(-4, 5, (256, NN_DIM)).astype(np.float32)
+    te_i[:8] = tr_i[0]                # ... 0 from these: it spans rank 1000
+    te_i[8:64] = tr_i[rng.randint(0, 20000, 56)]
+    got = find_nn_images(te_i, tr_i, NN_K)
+    t64, e64 = tr_i.astype(np.float64), te_i.astype(np.float64)
+    d = (e64 * e64).sum(1)[:, None] + (t64 * t64).sum(1)[None] \
+        - 2.0 * e64 @ t64.T
+    ref = np.argsort(d, axis=1, kind="stable")[:, :NN_K]
+    if not np.array_equal(got, ref):
+        fail(f"NN search: {int((got != ref).sum())} of {ref.size} ranks "
+             f"differ from the float64 reference")
+
+    annos_rng = np.random.RandomState(72)
+    ann = words[annos_rng.randint(len(words), size=(20000, 5, 10))]
+    annos = [{"id": i, "sentences": [" ".join(s) for s in a]}
+             for i, a in enumerate(ann)]
+    hypo = select_top_captions(preds[:8], top_k=4)
+    t0 = time.perf_counter()
+    order = consensus_rerank(hypo, annos, got[:8], gts, k=60, m=125)
+    rr_sec = time.perf_counter() - t0
+    for h in hypo:
+        if sorted(order[h["id"]]) != list(range(len(h["caption"]))):
+            fail(f"consensus rerank: image {h['id']} order {order[h['id']]}")
+    stats = {"train": NN_TRAIN, "test": NN_TEST, "dim": NN_DIM,
+             "num_nn": NN_K, "ms": statistics.median(ms), "runs_ms": ms,
+             "distance_ms": dist_ms,
+             "bound_ms": max(flops_ms, bytes_ms),
+             "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+             "exact_check": "256 x 20000 integer features, ties across "
+                            "rank 1000: equal to float64"}
+    print(f"rerank NN search: {NN_TEST} x {NN_TRAIN} x {NN_DIM} float32, "
+          f"top {NN_K}: median {stats['ms']:.2f} ms (runs "
+          f"{', '.join(f'{x:.2f}' for x in ms)}; the distance matmuls "
+          f"alone {dist_ms:.2f} ms), bound "
+          f"{stats['bound_ms']:.2f} ms ({stats['bound_by']}); integer "
+          f"check 256 x 20000 equal to float64 rank for rank; consensus "
+          f"rerank of 8 images (k 60, m 125): {rr_sec:.3f} s on the host")
+    return stats, {"images": 8, "k": 60, "m": 125, "s": rr_sec}
+
+
+def run_eval(preds, cpu_preds, greedy_preds, ctl_preds, vocab):
+    """Phases 13a-13d on captions decoded by the earlier phases."""
+    words = np.asarray([vocab[k] for k in sorted(vocab, key=int)])
+    lang, gts = run_language_eval(preds, cpu_preds, words)
+    div = run_diversity(greedy_preds)
+    ctl = run_controllability(ctl_preds, words)
+    nn, rr = run_nn_search(preds, gts, words)
+    return {"language_eval": lang, "diversity": div,
+            "controllability": ctl, "nn_search": nn, "consensus_rerank": rr}
 
 
 def _leaf_names(tree, prefix=""):
@@ -1135,15 +1408,19 @@ def main():
     checks += [check_attention(params, "subgraph", S, S, seed=20 + S,
                                beams=3) for S in (1, 32)]
     fullgc_launches = run_fullgc(vocab)
-    ctl_launches = run_sct("Sub_GC_Flickr_CTL", params_np, state, vocab,
-                           seed=21)
+    ctl_launches, ctl_preds = run_sct("Sub_GC_Flickr_CTL", params_np, state,
+                                      vocab, seed=21)
     sup_cfg, _, _ = build_configs("Sub_GC_Sup_Flickr_CTL")
-    sup_launches = run_sct("Sub_GC_Sup_Flickr_CTL",
-                           *init_params_numpy(sup_cfg, seed=1), vocab,
-                           seed=22)
+    sup_launches, _ = run_sct("Sub_GC_Sup_Flickr_CTL",
+                              *init_params_numpy(sup_cfg, seed=1), vocab,
+                              seed=22)
     ctl_check = check_attention(params, "image", BATCH_IMAGES * SCT_BUCKET,
                                 BATCH_IMAGES, seed=30)
     checks.append(ctl_check)
+
+    # ---- 13a-13d. the evaluation layer on the captions decoded above
+    eval_stats = run_eval(preds, cpu_preds, greedy_preds, ctl_preds, vocab)
+    print(json.dumps({"eval": eval_stats}))
 
     # ---- 14-16. training; first both kernels at the val passes' shapes
     _, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")

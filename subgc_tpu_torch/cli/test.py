@@ -7,13 +7,17 @@ write ``captions_<tag>.npy`` (``ctl_captions_<tag>.npy`` for the SCT
 presets), ``grounding_file.json`` with ``--return_att 1`` and
 ``vis/vis.json`` with ``--dump_json 1``.  Configs resolve in the order
 preset, then the checkpoint's ``infos.json``, then flags; the weights load
-from the checkpoint's ``model.npz``.
+from the checkpoint's ``model.npz``.  ``--language_eval 1`` scores the
+captions against the split's GT (``--annotations_json``, else the label
+h5) and writes ``all_scores_<tag>_<oracle_num>-subgraph.npy``;
+``--only_sent_eval 1`` re-scores a saved ``captions_<tag>.npy`` without
+decoding; ``--verbose_loss 1`` also prints the split's teacher-forced LM
+loss.
 
 Flags whose code the port does not have yet stop with a message naming the
-ROADMAP item: ``--language_eval``, ``--only_sent_eval`` (the scorers),
-``--verbose_loss`` (training), ``--n_devices`` > 1 and ``--shard_subgraphs``
-(parallelism), ``--packed_path`` (packed shards) and ``--group_size`` > 1
-(diverse beam groups).  Full_GC_Kar has no batched route (nor in the JAX
+ROADMAP item: ``--n_devices`` > 1 and ``--shard_subgraphs`` (parallelism),
+``--packed_path`` (packed shards) and ``--group_size`` > 1 (diverse beam
+groups).  Full_GC_Kar has no batched route (nor in the JAX
 CLI), so ``run_test_split`` refuses it: decode it with
 ``models.subgc.encode_image`` + ``beam_search``.
 """
@@ -44,10 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--beam_size", type=int, default=None)
     p.add_argument("--gpn_nms_thres", type=float, default=None)
     p.add_argument("--gpn_max_subg", type=int, default=None)
-    p.add_argument("--language_eval", type=int, default=0,
-                   help="not ported yet (ROADMAP item 14)")
-    p.add_argument("--only_sent_eval", type=int, default=0,
-                   help="not ported yet (ROADMAP item 14)")
+    p.add_argument("--language_eval", type=int, default=0)
+    p.add_argument("--only_sent_eval", type=int, default=0)
     p.add_argument("--oracle_num", type=int, default=1)
     p.add_argument("--return_att", type=int, default=None)
     p.add_argument("--use_topk_sampling", type=int, default=None)
@@ -66,8 +68,9 @@ def parse_args(argv=None):
     p.add_argument("--packed_path", type=str, default=None,
                    help="not ported yet (ROADMAP item 14)")
     p.add_argument("--annotations_json", type=str, default=None,
-                   help="GT annotation json for language eval (not ported "
-                        "yet, ROADMAP item 14)")
+                   help="GT annotation json for language eval "
+                        "({image_id: [captions]}); defaults to the "
+                        "dataset's own label h5")
     p.add_argument("--sct_dict", type=str,
                    default="data/sct_dict_test_grouped_gt_box.npy",
                    help="grouped GT region sets for SCT presets")
@@ -79,7 +82,8 @@ def parse_args(argv=None):
                    help="print every beam of one random kept sub-graph "
                         "per image (reference default 1; here 0)")
     p.add_argument("--verbose_loss", type=int, default=0,
-                   help="not ported yet (ROADMAP item 9)")
+                   help="also report the teacher-forced LM loss over the "
+                        "split's labels (eval_utils.py:73-86)")
     p.add_argument("--dump_json", type=int, default=0,
                    help="write vis/vis.json with the best caption per "
                         "image")
@@ -92,9 +96,6 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
     refused = [
-        (args.language_eval, "--language_eval", "14 (scorers)"),
-        (args.only_sent_eval, "--only_sent_eval", "14 (scorers)"),
-        (args.verbose_loss, "--verbose_loss", "9 (training)"),
         (args.n_devices is not None and args.n_devices > 1, "--n_devices",
          "13 (parallelism)"),
         (args.shard_subgraphs, "--shard_subgraphs", "13 (parallelism)"),
@@ -112,55 +113,45 @@ def _load_npy_dict(path):
     return np.load(path, allow_pickle=True, encoding="latin1").tolist()
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    _refuse_unported(args)
+def _gts_from_loader(loader, split):
+    """Decode the label h5 GT captions to strings per image id."""
+    from ..utils.text import decode_sequence
+    gts = {}
+    for ix in loader.split_ix[split]:
+        gts[loader.ds.images[ix]["id"]] = decode_sequence(
+            loader.vocab, loader.ds.captions_for(ix),
+            remove_bad_endings=False)
+    return gts
 
-    from ..config import ModelConfig, build_configs, config_from_json
-    from ..data.dataset import EvalLoader
-    from ..device import resolve_device
+
+def _lm_loss(params, state, mcfg, dcfg, args, dev):
+    """The split's teacher-forced LM loss, the JAX CLI's batching: batches
+    of min(8, batch_images) images until the split wraps."""
+    from ..config import TrainConfig
+    from ..data.dataset import TrainLoader
+    from ..train.step import batch_to_device, make_val_step
+    tloader = TrainLoader(mcfg, TrainConfig(
+        batch_size=min(8, max(1, args.batch_images))), dcfg, seed=args.seed)
+    val_step = make_val_step(mcfg)
+    n_img = len(tloader.split_ix[args.split]) \
+        if args.num_images < 0 else args.num_images
+    tot, nb = 0.0, 0
+    tloader.reset_iterator(args.split)
+    for _ in range(max(1, n_img // tloader.batch_size)):
+        vb, _, vw = tloader.get_batch(args.split)
+        tot += float(val_step(params, state, batch_to_device(vb, dev)))
+        nb += 1
+        if vw:
+            break
+    return tot / nb, nb
+
+
+def _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag):
+    """Decode the split and save its captions file; write the grounding /
+    vis artifacts and print the LM loss where the flags ask for them.
+    Returns (captions path, predictions)."""
     from ..eval.runner import run_test_split, save_predictions
     from ..models.params import load_model_npz, params_from_numpy
-
-    # preset < checkpoint infos < CLI flags
-    mcfg, ecfg, dcfg = build_configs(args.model_type, mode="test")
-    infos_path = os.path.join(args.checkpoint_path, "infos.json")
-    infos = {}
-    if os.path.exists(infos_path):
-        with open(infos_path) as f:
-            infos = json.load(f)
-        mcfg = config_from_json(ModelConfig, infos["model_config"])
-        if infos.get("model_type") and infos["model_type"] != args.model_type:
-            print(f"note: checkpoint was trained as {infos['model_type']}, "
-                  f"evaluating as {args.model_type}")
-    for k in ["beam_size", "gpn_nms_thres", "gpn_max_subg", "return_att",
-              "use_topk_sampling", "oracle_num", "topk_temp", "the_k",
-              "group_size", "diversity_lambda", "decoding_constraint",
-              "length_penalty", "remove_bad_endings", "verbose_beam"]:
-        v = getattr(args, k)
-        if v is not None:
-            ecfg = ecfg.replace(**{k: bool(v) if k in ("return_att",
-                                                       "use_topk_sampling",
-                                                       "remove_bad_endings")
-                                   else v})
-    for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir"]:
-        if getattr(args, k) is not None:
-            dcfg = dcfg.replace(**{k: getattr(args, k)})
-    dev = resolve_device(args.device)
-
-    bucket = args.bucket or ecfg.max_subgraph_bucket
-    if ecfg.sct:
-        from ..data.sct import SCTLoader
-        loader = SCTLoader(mcfg, dcfg, _load_npy_dict(args.sct_dict),
-                           _load_npy_dict(args.img_wh),
-                           use_greedy_subg=ecfg.use_greedy_subg,
-                           use_gt_subg=ecfg.use_gt_subg, bucket=bucket,
-                           seed=args.seed)
-    else:
-        loader = EvalLoader(mcfg, dcfg, bucket=bucket, seed=args.seed)
-    mcfg = mcfg.replace(vocab_size=loader.vocab_size,
-                        seq_length=loader.seq_length)
-    iter_tag = args.iter_tag or str(infos.get("iter", "0"))
 
     blob = load_model_npz(os.path.join(args.checkpoint_path, "model.npz"))
     params = params_from_numpy(blob["params"], dev)
@@ -193,6 +184,12 @@ def main(argv=None):
         collector.save(gpath)
         print(f"grounding material -> {gpath}")
 
+    if args.verbose_loss:
+        # teacher-forced LM loss over the split's labels — the
+        # reference's in-eval loss report (eval_utils.py:73-86)
+        lm_loss, nb = _lm_loss(params, state, mcfg, dcfg, args, dev)
+        print(f"{args.split} LM loss: {lm_loss:.4f} ({nb} batches)")
+
     if args.dump_json:
         # vis/vis.json: best caption per image (+ file_path with
         # --dump_path), the reference's test.py:48-50 artifact
@@ -209,7 +206,86 @@ def main(argv=None):
         with open(os.path.join("vis", "vis.json"), "w") as f:
             json.dump(vis, f)
         print(f"predictions -> vis/vis.json ({len(vis)} images)")
-    return {"captions_path": path, "scores": None, "iter_tag": iter_tag}
+    return path, preds
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    from ..config import ModelConfig, build_configs, config_from_json
+    from ..data.dataset import EvalLoader
+    from ..device import resolve_device
+    from ..eval.sentence import align_predictions, language_eval
+
+    # preset < checkpoint infos < CLI flags
+    mcfg, ecfg, dcfg = build_configs(args.model_type, mode="test")
+    infos_path = os.path.join(args.checkpoint_path, "infos.json")
+    infos = {}
+    if os.path.exists(infos_path):
+        with open(infos_path) as f:
+            infos = json.load(f)
+        mcfg = config_from_json(ModelConfig, infos["model_config"])
+        if infos.get("model_type") and infos["model_type"] != args.model_type:
+            print(f"note: checkpoint was trained as {infos['model_type']}, "
+                  f"evaluating as {args.model_type}")
+    for k in ["beam_size", "gpn_nms_thres", "gpn_max_subg", "return_att",
+              "use_topk_sampling", "oracle_num", "only_sent_eval",
+              "topk_temp", "the_k", "group_size", "diversity_lambda",
+              "decoding_constraint", "length_penalty",
+              "remove_bad_endings", "verbose_beam"]:
+        v = getattr(args, k)
+        if v is not None:
+            ecfg = ecfg.replace(**{k: bool(v) if k in ("return_att",
+                                                       "use_topk_sampling",
+                                                       "remove_bad_endings")
+                                   else v})
+    for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir"]:
+        if getattr(args, k) is not None:
+            dcfg = dcfg.replace(**{k: getattr(args, k)})
+    # re-scoring a saved captions file runs nothing on a device
+    dev = None if ecfg.only_sent_eval else resolve_device(args.device)
+
+    bucket = args.bucket or ecfg.max_subgraph_bucket
+    if ecfg.sct:
+        from ..data.sct import SCTLoader
+        loader = SCTLoader(mcfg, dcfg, _load_npy_dict(args.sct_dict),
+                           _load_npy_dict(args.img_wh),
+                           use_greedy_subg=ecfg.use_greedy_subg,
+                           use_gt_subg=ecfg.use_gt_subg, bucket=bucket,
+                           seed=args.seed)
+    else:
+        loader = EvalLoader(mcfg, dcfg, bucket=bucket, seed=args.seed)
+    mcfg = mcfg.replace(vocab_size=loader.vocab_size,
+                        seq_length=loader.seq_length)
+    iter_tag = args.iter_tag or str(infos.get("iter", "0"))
+
+    if not ecfg.only_sent_eval:
+        path, preds = _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag)
+    else:
+        path = os.path.join(args.checkpoint_path,
+                            f"captions_{iter_tag}.npy")
+        preds = np.load(path, allow_pickle=True).tolist()
+        print(f"loaded {len(preds)} predictions from {path}")
+
+    scores = None
+    if args.language_eval or ecfg.only_sent_eval:
+        if args.annotations_json:
+            with open(args.annotations_json) as f:
+                gts = {int(k): v for k, v in json.load(f).items()}
+        else:
+            gts = _gts_from_loader(loader, args.split)
+        aligned = align_predictions(preds, ecfg.oracle_num)
+        scores = language_eval(
+            gts, aligned,
+            cache_dir=os.path.join(args.checkpoint_path, "eval_results"),
+            model_id=args.model_type, split=args.split)
+        out = os.path.join(args.checkpoint_path,
+                           f"all_scores_{iter_tag}_{ecfg.oracle_num}"
+                           f"-subgraph.npy")
+        np.save(out, np.asarray(scores, dtype=object), allow_pickle=True)
+        print(f"scores -> {out}")
+    return {"captions_path": path, "scores": scores, "iter_tag": iter_tag}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,11 @@
 the counterpart of ``subgc_tpu/train/optim.py``.
 
 The schedules are host functions of (iteration, epoch) computed in float32
-exactly as the JAX package's jitted ones are, so the learning rate of every
-step is the same number in both packages.  The update is the JAX package's
+as the JAX package's eager ``learning_rate`` computes them (powers by
+``_pow_f32``), so every step's learning rate is that function's number.  The
+JAX package's jitted step rounds the decay powers differently and can
+differ from it in the last bit for decayed epochs.  The update is the JAX
+package's
 optax chain, ``clip_by_global_norm(10)``, then ``add_decayed_weights(wd)``
 when ``weight_decay`` is set, then ``adam(b1, b2, eps)``, written with
 ``torch._foreach_*`` over the parameter leaves:

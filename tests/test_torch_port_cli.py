@@ -94,8 +94,7 @@ def test_cli_artifacts_match_jax(run, preset, name):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--language_eval", "1"], ["--only_sent_eval", "1"],
-    ["--verbose_loss", "1"], ["--n_devices", "2"], ["--shard_subgraphs"],
+    ["--n_devices", "2"], ["--shard_subgraphs"],
     ["--packed_path", "shards/*.bin"], ["--group_size", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
     with pytest.raises(SystemExit, match="ROADMAP item"):

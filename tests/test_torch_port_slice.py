@@ -22,6 +22,7 @@ from subgc_tpu.data.synthetic import generate_dataset
 from subgc_tpu.eval.runner import run_test_split as j_run_test_split
 from subgc_tpu.models.params import init_params as j_init_params
 import subgc_tpu_torch as P
+from subgc_tpu_torch.eval.rerank import find_nn_images
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,7 +100,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                        "subgc_tpu_torch."):
             importlib.import_module(m.name)
         bad = [k for k in sys.modules
-               if k.split(".")[0] in ("subgc_tpu", "h5py")]
+               if k.split(".")[0] in ("subgc_tpu", "h5py", "scipy")]
         assert not bad, bad
         print("ok")
     """)
@@ -110,7 +111,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "params_from_numpy",
-                                   "run_test_split"])
+                                   "run_test_split", "find_nn_images"])
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = P.ModelConfig(vocab_size=20, rnn_size=16, input_encoding_size=8,
@@ -122,6 +123,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
         "params_from_numpy": lambda: P.params_from_numpy({"w": np.ones(2)}),
         "run_test_split": lambda: P.run_test_split(
             {}, {}, None, cfg, P.EvalConfig(beam_size=2), {}),
+        "find_nn_images": lambda: find_nn_images(np.ones((2, 3), "f"),
+                                                 np.ones((4, 3), "f")),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
