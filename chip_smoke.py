@@ -7,7 +7,8 @@ and time it.  Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off, since the
-   reference is full float32;
+   reference is full float32, and bf16 matmuls summing in float32
+   (``allow_bf16_reduced_precision_reduction`` off), as the JAX package's;
 2. build: every kernel of the main path from ``subgc_tpu_torch/ops/csrc``;
 3. kernel against its plain version on the card, float32, both beam layouts,
    at the main path's shape and at a 96-image batch (S=960 rows);
@@ -122,8 +123,41 @@ Phases (any failure exits non-zero before the last line is printed):
     training phase reads its own peak memory: the earlier phases' tensors
     have left the card by then.
 
-Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
-as the last line.  Needs no network and imports no jax.
+The bfloat16 chain (``compute_dtype="bfloat16"``); 17-19 run after 13d,
+while the test params are on the card, and 20 after 16:
+
+17. both bf16 kernel variants against their plain versions on the card:
+    the beam-shared one at Sub_GC_Kar's shapes (image-shared S=160, G=16,
+    and per-sub-graph S=160, 2 beams), the M-RNN fan-out (S=2000, G=2, one
+    beam) and Full_GC_Kar's (S=1, 3 beams), weights atol 2e-3 and att_res,
+    rounded to bf16, rtol 1e-2; the per-row one at the grounding path's
+    R=160 and the val pass's R=320, float32 tolerances (its math is
+    float32); ms, plain ms, the bound with bf16 bytes and the bf16
+    tensor-core peak, and the same bytes with the float32 peak;
+18. Sub_GC_Kar in bf16 + bf16 gates (bench.py's decode configuration) on
+    phase 4's 64 images: the shared bf16 kernel exactly dispatches x
+    seq_length times and no other; captions checked as in 4, captions/s;
+    card against CPU (bf16) on the first batch: sGPN scores within atol
+    2e-2, keep sets identical on >= 90% of the images, one full-width
+    ``decode_step`` from the same features, state and tokens within atol
+    5e-2; caption agreement against the CPU's bf16 and the card's float32
+    captions printed, not gated (a near-tie flips a word);
+19. Sub_GC_Flickr_GRD in bf16 + bf16 gates with a collector: the row bf16
+    kernel exactly dispatches x (seq_length + 1) times and no other; card
+    against CPU on the first batch printed;
+20. Sub_GC_Kar training in bf16 + bf16 gates + bf16 residuals (bench.py's
+    train step) at 64 images: 3 hoisted steps checked as in 14 (ms,
+    images/s, peak memory), one more without a host sync; card against
+    CPU on 2 images: loss within rtol 1e-3, no live gradient lost, each
+    that holds >= 1e-3 of the whole gradient's norm with cosine >= 0.99,
+    the smaller (the attention's score leaves, whose sums cancel) within
+    1e-4 of the whole norm; the val pass: the row bf16 kernel exactly 17
+    times, its loss against the CPU's within rtol 1e-3 and against the
+    card's float32 val pass within rtol 1e-2.
+
+Prints a ``{"kernels": [...]}`` line (both kernels and their bf16
+variants), then ``{"ok": true, "device": ...}`` as the last line.  Needs
+no network and imports no jax.
 """
 import json
 import os
@@ -146,7 +180,13 @@ SCT_IMAGES = 64          # the CTL presets: 4 dispatches of 16 images
 SCT_BUCKET = 32          # SCTLoader's default bucket
 TRAIN_CHECK_IMAGES = 2   # card-vs-CPU gradients at full width
 F32_PEAK = 67e12         # H100 SXM float32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12       # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM device memory, bytes/s
+# the shared bf16 kernel against its plain version, as the CPU tests hold
+# the plain version to the Pallas kernel: weights atol 2e-3, att_res
+# rounded to bf16 (as its consumer rounds it) rtol 1e-2
+BF16_SHARED_TOL = dict(w_atol=2e-3, out_rtol=1e-2, out_atol=1e-6,
+                       round_out=True)
 
 
 def fail(msg):
@@ -173,27 +213,34 @@ def cuda_ms(fn, runs=25, warmup=3):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def attention_bound_ms(S, B, R, G, N, H, D):
-    """Least time for one launch: compulsory bytes over HBM rate against
-    operations over the float32 peak (a multiply-add counts 2).
-    Returns (ms, "bytes" or "operations")."""
-    nbytes = 4 * (S * B * R + G * N * (H + D) + S * N + S + R * H + 2 * H + 1
-                  + S * B * (D + N))
-    ops = S * B * (2 * R * H + 2 * N * H + 2 * N * D)
-    t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
+def _bound(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_RATE, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
 
-def row_attention_bound_ms(R, Hin, N, H, D):
+def attention_bound_ms(S, B, R, G, N, H, D, bf16=False, peak=None):
+    """Least time for one launch: compulsory bytes over HBM rate against
+    operations over the peak for their type (a multiply-add counts 2):
+    float32 on the CUDA cores, or with ``bf16`` (streams h, p_att, att,
+    wh, v of 2 bytes; bh, bv, mask and the float32 outputs of 4) the bf16
+    tensor-core peak; ``peak`` overrides it.  Returns (ms, "bytes" or
+    "operations")."""
+    s = 2 if bf16 else 4
+    nbytes = (s * (S * B * R + G * N * (H + D) + R * H + H)
+              + 4 * (S * N + S + H + 1 + S * B * (D + N)))
+    ops = S * B * (2 * R * H + 2 * N * H + 2 * N * D)
+    return _bound(nbytes, ops, peak or (BF16_PEAK if bf16 else F32_PEAK))
+
+
+def row_attention_bound_ms(R, Hin, N, H, D, bf16=False, peak=None):
     """Least time for one ``row_attention`` launch, as attention_bound_ms
     counts it: every row reads its own streams."""
-    nbytes = 4 * (R * Hin + R * N * (H + D) + R * N + Hin * H + 2 * H + 1
-                  + R * (D + N))
+    s = 2 if bf16 else 4
+    nbytes = (s * (R * Hin + R * N * (H + D) + Hin * H + H)
+              + 4 * (R * N + H + 1 + R * (D + N)))
     ops = R * (2 * Hin * H + 2 * N * H + 2 * N * D)
-    t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    return _bound(nbytes, ops, peak or (BF16_PEAK if bf16 else F32_PEAK))
 
 
 def project_bound_ms(Q, Hin, H):
@@ -234,9 +281,10 @@ def check_projection(params, Q, seed=0):
     return res
 
 
-def attention_inputs(params, layout, S, G, seed, beams=2):
+def attention_inputs(params, layout, S, G, seed, beams=2, bf16=False):
     """Kernel inputs at full width: h in (-1, 1) like an LSTM output, the
-    model's own h2att/alpha_net weights, projected node streams."""
+    model's own h2att/alpha_net weights, projected node streams; with
+    ``bf16`` the streams, h, wh and v in bfloat16 (the bf16 chain)."""
     import torch
     dec = params["decoder"]
     dev = dec["h2att"]["w"].device
@@ -257,21 +305,30 @@ def attention_inputs(params, layout, S, G, seed, beams=2):
         mask = (torch.arange(n, device=dev)[None] < count).float()
         idx = torch.arange(S, device=dev)
     mask[:, 0] = 1.0
-    return [h, p_att, att, mask, idx.to(torch.int32), dec["h2att"]["w"],
-            dec["h2att"]["b"], dec["alpha_net"]["w"], dec["alpha_net"]["b"]]
+    x = [h, p_att, att, mask, idx.to(torch.int32), dec["h2att"]["w"],
+         dec["h2att"]["b"], dec["alpha_net"]["w"], dec["alpha_net"]["b"]]
+    return [t.to(torch.bfloat16) if bf16 and i in (0, 1, 2, 5, 7) else t
+            for i, t in enumerate(x)]
 
 
-def compare_and_time(label, kernel, plain, x, bound):
-    """A kernel against its plain version on the same card inputs (weights
-    atol 1e-5, att_res rtol/atol 1e-4); times both."""
+def compare_and_time(label, kernel, plain, x, bound, w_atol=1e-5,
+                     out_rtol=1e-4, out_atol=1e-4, round_out=False):
+    """A kernel against its plain version on the same card inputs (float32:
+    weights atol 1e-5, att_res rtol/atol 1e-4; the shared bf16 kernel,
+    ``BF16_SHARED_TOL``: weights atol 2e-3, att_res rounded to bf16 as its
+    consumer rounds it, rtol 1e-2); times both."""
+    import torch
     out, w = kernel(*x)
     r_out, r_w = plain(*x)
+    if round_out:
+        out, r_out = (t.to(torch.bfloat16).float() for t in (out, r_out))
     w_err = (w - r_w).abs().max().item()
     o_err = (out - r_out).abs()
-    bad = (o_err > 1e-4 + 1e-4 * r_out.abs()).sum().item()
-    if not (w_err <= 1e-5 and bad == 0):
+    bad = (o_err > out_atol + out_rtol * r_out.abs()).sum().item()
+    if not (w_err <= w_atol and bad == 0):
         fail(f"{label} disagrees with its plain version: max |dw| "
-             f"{w_err:.3g}, {bad} att_res entries out of rtol/atol 1e-4")
+             f"{w_err:.3g}, {bad} att_res entries out of rtol {out_rtol} "
+             f"/ atol {out_atol}")
     res = {"max_abs_err": max(w_err, o_err.max().item()),
            "ms": cuda_ms(lambda: kernel(*x)),
            "plain_ms": cuda_ms(lambda: plain(*x)),
@@ -282,22 +339,31 @@ def compare_and_time(label, kernel, plain, x, bound):
     return res
 
 
-def check_attention(params, layout, S, G, seed=0, beams=2):
-    """The beam-shared kernel against its plain version on the card."""
+def check_attention(params, layout, S, G, seed=0, beams=2, bf16=False):
+    """The beam-shared kernel against its plain version on the card (with
+    ``bf16`` its bf16 variant, at ``BF16_SHARED_TOL``)."""
     from subgc_tpu_torch.ops import attention as A
-    x = attention_inputs(params, layout, S, G, seed, beams)
+    x = attention_inputs(params, layout, S, G, seed, beams, bf16)
     _, B, R = x[0].shape
     G_, N, H = x[1].shape
     plan = A.attention_plan(S, B, G_, R, H)
-    return compare_and_time(
-        f"attention kernel {layout:8s} S={S:4d} G={G:4d} B={B} {plan}",
+    dims = (S, B, R, G_, N, H, x[2].shape[-1])
+    res = compare_and_time(
+        f"attention kernel{' bf16' if bf16 else ''} {layout:8s} S={S:4d} "
+        f"G={G:4d} B={B} {plan}",
         A.shared_attention, A.shared_attention_ref, x,
-        attention_bound_ms(S, B, R, G_, N, H, x[2].shape[-1]))
+        attention_bound_ms(*dims, bf16=bf16),
+        **(BF16_SHARED_TOL if bf16 else {}))
+    if bf16:
+        res["bound_f32_peak_ms"] = attention_bound_ms(
+            *dims, bf16=True, peak=F32_PEAK)[0]
+    return res
 
 
-def check_row_attention(params, R, seed=0):
+def check_row_attention(params, R, seed=0, bf16=False):
     """The per-row kernel against its plain version on the card at full
-    width (left-packed sub-graph masks)."""
+    width (left-packed sub-graph masks); with ``bf16`` its bf16 variant
+    (bf16 streams, float32 math: the float32 tolerances)."""
     import torch
     from subgc_tpu_torch.ops import attention as A
     dec = params["decoder"]
@@ -312,10 +378,18 @@ def check_row_attention(params, R, seed=0):
          (torch.arange(n, device=dev)[None] < count).float(),
          dec["h2att"]["w"], dec["h2att"]["b"], dec["alpha_net"]["w"],
          dec["alpha_net"]["b"]]
+    if bf16:
+        x = [t.to(torch.bfloat16) if i in (0, 1, 2, 4, 6) else t
+             for i, t in enumerate(x)]
     plan = A.attention_plan(R, 1, R, Hin, H)
-    return compare_and_time(f"row attention kernel R={R:4d} {plan}",
-                            A.row_attention, A.row_attention_ref, x,
-                            row_attention_bound_ms(R, Hin, n, H, D))
+    res = compare_and_time(
+        f"row attention kernel{' bf16' if bf16 else ''} R={R:4d} {plan}",
+        A.row_attention, A.row_attention_ref, x,
+        row_attention_bound_ms(R, Hin, n, H, D, bf16=bf16))
+    if bf16:
+        res["bound_f32_peak_ms"] = row_attention_bound_ms(
+            R, Hin, n, H, D, bf16=True, peak=F32_PEAK)[0]
+    return res
 
 
 def check_project_launches(path, launches):
@@ -1117,12 +1191,14 @@ def check_train_grads(label, cfg, params_np, state_np, seed):
     return card[2], cpu[2]
 
 
-def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared):
+def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared,
+              rtol=1e-5):
     """The val pass (no autograd) on the card with the kernel counters reset
     just before it, then on the CPU (plain attention) from the same params:
-    checks the launches and the card's loss against the CPU's (rtol 1e-5).
-    Returns (card loss, CPU loss, row_attention launches, shared_attention
-    launches), the launches as counted."""
+    checks the launches (of the bf16 variants in the bf16 chain) and the
+    card's loss against the CPU's (``rtol``).  Returns (card loss, CPU
+    loss, row_attention launches, shared_attention launches), the launches
+    as counted."""
     import torch
     from subgc_tpu_torch import params_from_numpy
     from subgc_tpu_torch.models.params import params_to_numpy
@@ -1131,11 +1207,15 @@ def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared):
     val_step = make_val_step(cfg)
     batch = batch_to_device(batch_np, "cuda")
     torch.cuda.synchronize()
-    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    A.reset_launch_counts()
     loss = val_step(ts.params, ts.model_state, batch)
     torch.cuda.synchronize()
-    row, shared = A.ROW_LAUNCHES, A.LAUNCHES
-    if (row, shared) != (expect_row, expect_shared):
+    bf16 = cfg.compute_dtype == "bfloat16"
+    row, shared = ((A.ROW_BF16_LAUNCHES, A.SHARED_BF16_LAUNCHES) if bf16
+                   else (A.ROW_LAUNCHES, A.LAUNCHES))
+    if (row, shared) != (expect_row, expect_shared) or (
+            A.ROW_LAUNCHES + A.LAUNCHES if bf16 else
+            A.ROW_BF16_LAUNCHES + A.SHARED_BF16_LAUNCHES):
         fail(f"{label}: row_attention launched {row} times, shared_attention "
              f"{shared}; expected {expect_row} and {expect_shared}")
     check_project_launches(label, row + shared)
@@ -1145,7 +1225,8 @@ def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared):
         *(params_from_numpy(params_to_numpy(t), "cpu")
           for t in (ts.params, ts.model_state)),
         batch_to_device(batch_np, "cpu")).item()
-    if not (np.isfinite(loss) and abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss)):
+    if not (np.isfinite(loss)
+            and abs(loss - cpu_loss) <= rtol * abs(cpu_loss)):
         fail(f"{label}: loss card {loss} cpu {cpu_loss}")
     print(f"{label}: loss card {loss:.6f} cpu {cpu_loss:.6f} "
           f"({time.perf_counter() - t0:.1f} s on cpu) on "
@@ -1295,6 +1376,286 @@ def run_train(params_np, state_np):
     return row, shared, {"Sub_GC_Kar": kar, "Full_GC_Kar": full}
 
 
+# ---- the bfloat16 chain (phases 17-20)
+
+BF16_MODEL = dict(compute_dtype="bfloat16", bf16_lstm_gates=True)
+
+
+def run_bf16_kernels(params, S_main, S_val):
+    """Phase 17: both bf16 variants against their plain versions on the
+    card at the main paths' shapes: Sub_GC_Kar's (S_main rows) in both
+    beam layouts, the M-RNN fan-out, Full_GC_Kar's one row of 3 beams, the
+    grounding path's rows and the val pass's (S_val).  Returns (shared
+    checks, row checks), the main path's shape first."""
+    shared = [check_attention(params, "image", S_main, BATCH_IMAGES,
+                              seed=50, bf16=True),
+              check_attention(params, "subgraph", S_main, S_main, seed=51,
+                              bf16=True),
+              check_attention(params, "image", 2000, 2, seed=52, beams=1,
+                              bf16=True),
+              check_attention(params, "subgraph", 1, 1, seed=53, beams=3,
+                              bf16=True)]
+    row = [check_row_attention(params, S_main, seed=54, bf16=True),
+           check_row_attention(params, S_val, seed=55, bf16=True)]
+    for c in shared + row:
+        print(f"  bf16 bound {c['bound_ms']:.4f} ms ({c['bound_by']}); "
+              f"with its operations at the float32 peak "
+              f"{c['bound_f32_peak_ms']:.4f} ms")
+    return shared, row
+
+
+def bf16_decode_step_err(params, cpu_params, state, examples, cfg, ecfg):
+    """One full-width ``decode_step`` in the image-shared beam layout, card
+    against CPU, from the same features (the CPU's encoding, copied to the
+    card), the same seeded state and tokens: max |logprob difference|."""
+    import torch
+    from subgc_tpu_torch.eval.runner import _stack_examples
+    from subgc_tpu_torch.graph import to_device
+    from subgc_tpu_torch.models import decoder as D
+    from subgc_tpu_torch.models.subgc import encode_images_batched
+    graph, subs = (to_device(x, "cpu") for x in _stack_examples(examples))
+    with torch.no_grad():
+        feats = encode_images_batched(cpu_params, state, graph, subs, cfg,
+                                      ecfg).feats
+        S, B, R = feats.fc.shape[0], ecfg.beam_size, cfg.rnn_size
+        g = torch.Generator().manual_seed(60)
+        h = (torch.rand((S, B, R), generator=g) * 2 - 1).to(torch.bfloat16)
+        c = torch.randn((S, B, R), generator=g)
+        state0 = D.DecoderState(h, c, h, c)
+        token = torch.randint(1, cfg.vocab_size, (S, B), generator=g)
+        out = []
+        for p in (cpu_params, params):
+            dev = p["decoder"]["logit"]["w"].device
+            f = D.PreparedFeatures(*(None if t is None else t.to(dev)
+                                     for t in feats))
+            lp, _, _ = D.decode_step(
+                D.cast_decoder_weights(p, cfg),
+                D.DecoderState(*(t.to(dev) for t in state0)),
+                token.to(dev), f, cfg)
+            out.append(lp.cpu())
+    return (out[0] - out[1]).abs().max().item()
+
+
+def caption_agreement(a_preds, b_preds):
+    """(identical, compared) captions over the sub-graphs both kept."""
+    same = total = 0
+    for a, b in zip(a_preds, b_preds):
+        ca = dict(zip(np.asarray(a["sorted_subgraph_ind"]).tolist(),
+                      a["caption"]))
+        cb = dict(zip(np.asarray(b["sorted_subgraph_ind"]).tolist(),
+                      b["caption"]))
+        for k in set(ca) & set(cb):
+            total += 1
+            same += ca[k] == cb[k]
+    return same, total
+
+
+def run_bf16_test(params, cpu_params, state, examples, vocab, f32_preds):
+    """Phase 18: Sub_GC_Kar in bf16 + bf16 gates at full width, the
+    configuration bench.py decodes, on phase 4's images; card against CPU on
+    the first batch.  Returns (bf16 shared kernel launches, stats)."""
+    import torch
+    from subgc_tpu_torch import build_configs, run_test_split
+    from subgc_tpu_torch.ops import attention as A
+    cfg, ecfg, _ = build_configs("Sub_GC_Kar", model=BF16_MODEL,
+                                 eval=dict(max_subgraph_bucket=BUCKET))
+    loader = MemoryLoader(examples)
+    run_test_split(params, state, loader, cfg, ecfg, vocab,
+                   num_images=BATCH_IMAGES, verbose=False,
+                   batch_images=BATCH_IMAGES, device="cuda")    # warm-up
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, cfg, ecfg, vocab, verbose=False,
+        batch_images=BATCH_IMAGES, device="cuda")
+    launches = A.SHARED_BF16_LAUNCHES
+    n_dispatch = -(-len(examples) // BATCH_IMAGES)
+    others = A.LAUNCHES + A.ROW_LAUNCHES + A.ROW_BF16_LAUNCHES
+    if launches != n_dispatch * cfg.seq_length or others:
+        fail(f"bf16 main path: shared bf16 kernel launched {launches} times "
+             f"and the others {others}; expected {n_dispatch} dispatches x "
+             f"{cfg.seq_length} steps and 0")
+    check_project_launches("bf16 main path", launches)
+    check_predictions(preds, len(examples), ecfg.gpn_max_subg)
+    enc_ms, dec_ms = phase_times(params, state, examples[:BATCH_IMAGES], cfg,
+                                 ecfg, torch.device("cuda"))
+    print(f"bf16 main path (Sub_GC_Kar, bf16 + bf16 gates): {len(examples)} "
+          f"images, {n_caps} captions in {wall:.3f} s = {n_caps / wall:.1f} "
+          f"captions/s; per {BATCH_IMAGES}-image batch: encoder+sGPN+NMS "
+          f"{enc_ms:.2f} ms, beam decode {dec_ms:.2f} ms; shared bf16 kernel "
+          f"launches {launches}")
+
+    t0 = time.perf_counter()
+    cpu_preds, _, _ = run_test_split(
+        cpu_params, state, loader, cfg, ecfg, vocab, num_images=BATCH_IMAGES,
+        verbose=False, batch_images=BATCH_IMAGES, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n_keep, worst = 0, 0.0
+    for g, c in zip(preds, cpu_preds):
+        gs = dict(zip(np.asarray(g["sorted_subgraph_ind"]).tolist(),
+                      g["subgraph_score"]))
+        cs = dict(zip(np.asarray(c["sorted_subgraph_ind"]).tolist(),
+                      c["subgraph_score"]))
+        n_keep += sorted(gs) == sorted(cs)
+        worst = max([worst] + [float(abs(gs[k] - cs[k]))
+                               for k in set(gs) & set(cs)])
+    if worst > 2e-2:
+        fail(f"bf16: sGPN scores card vs cpu differ by {worst:.3g} > 2e-2")
+    if n_keep < 0.9 * len(cpu_preds):
+        fail(f"bf16: keep sets identical on only {n_keep}/{len(cpu_preds)} "
+             f"images")
+    step_err = bf16_decode_step_err(params, cpu_params, state,
+                                    examples[:BATCH_IMAGES], cfg, ecfg)
+    if not step_err <= 5e-2:
+        fail(f"bf16: one decode_step's logprobs card vs cpu differ by "
+             f"{step_err:.3g} > 5e-2")
+    vs_cpu = caption_agreement(preds, cpu_preds)
+    vs_f32 = caption_agreement(preds, f32_preds)
+    print(f"bf16 card vs cpu ({cpu_s:.1f} s on cpu): keep sets identical on "
+          f"{n_keep}/{len(cpu_preds)} images, sGPN scores within "
+          f"{worst:.3g}, one decode_step's logprobs within {step_err:.3g}; "
+          f"captions identical: {vs_cpu[0]}/{vs_cpu[1]} against the cpu's "
+          f"bf16, {vs_f32[0]}/{vs_f32[1]} against the card's float32")
+    return launches, {"images": len(examples), "captions": n_caps,
+                      "captions_per_s": n_caps / wall, "encode_ms": enc_ms,
+                      "decode_ms": dec_ms, "keep_sets_identical": n_keep,
+                      "score_max_diff": worst, "decode_step_max_diff":
+                      step_err, "captions_vs_cpu_bf16": vs_cpu,
+                      "captions_vs_card_f32": vs_f32}
+
+
+def run_bf16_grounding(params, cpu_params, state, examples, vocab):
+    """Phase 19: Sub_GC_Flickr_GRD in bf16 + bf16 gates with a collector,
+    the per-row bf16 kernel; card against CPU on the first batch, printed.
+    Returns the row bf16 kernel's launches."""
+    import torch
+    from subgc_tpu_torch import (GroundingCollector, build_configs,
+                                 run_test_split)
+    from subgc_tpu_torch.ops import attention as A
+    cfg, ecfg, _ = build_configs("Sub_GC_Flickr_GRD", model=BF16_MODEL,
+                                 eval=dict(max_subgraph_bucket=BUCKET))
+    loader = MemoryLoader(examples)
+    tables = grounding_tables(vocab, examples)
+    run_test_split(params, state, loader, cfg, ecfg, vocab,
+                   num_images=BATCH_IMAGES, verbose=False,
+                   batch_images=BATCH_IMAGES, device="cuda")    # warm-up
+    torch.cuda.synchronize()
+    col = GroundingCollector(*tables)
+    A.reset_launch_counts()
+    preds, wall, n_caps = run_test_split(
+        params, state, loader, cfg, ecfg, vocab, verbose=False,
+        batch_images=BATCH_IMAGES, device="cuda", collect_grounding=col)
+    launches = A.ROW_BF16_LAUNCHES
+    others = A.LAUNCHES + A.ROW_LAUNCHES + A.SHARED_BF16_LAUNCHES
+    n_dispatch = -(-len(examples) // BATCH_IMAGES)
+    if launches != n_dispatch * (cfg.seq_length + 1) or others:
+        fail(f"bf16 grounding path: row bf16 kernel launched {launches} "
+             f"times and the others {others}; expected {n_dispatch} "
+             f"dispatches x {cfg.seq_length + 1} steps and 0")
+    check_project_launches("bf16 grounding path", launches)
+    check_predictions(preds, len(examples), ecfg.gpn_max_subg)
+    if sorted(col.output) != sorted(str(ex.info.id) for ex in examples):
+        fail("bf16 grounding path: the collector missed images")
+    cpu_col = GroundingCollector(*tables)
+    cpu_preds, _, _ = run_test_split(
+        cpu_params, state, loader, cfg, ecfg, vocab, num_images=BATCH_IMAGES,
+        verbose=False, batch_images=BATCH_IMAGES, device="cpu",
+        collect_grounding=cpu_col)
+    same = caption_agreement(preds, cpu_preds)
+    same_best = [str(g["image_id"]) for g, c in zip(preds, cpu_preds)
+                 if g["caption"][0] == c["caption"][0]]
+    n_grd = sum(col.output[i] == cpu_col.output[i] for i in same_best)
+    print(f"bf16 grounding path (Sub_GC_Flickr_GRD, bf16 + bf16 gates): "
+          f"{len(examples)} images, {n_caps} captions in {wall:.3f} s = "
+          f"{n_caps / wall:.1f} captions/s; row bf16 kernel launches "
+          f"{launches}; card vs cpu: {same[0]}/{same[1]} captions "
+          f"identical, grounding entries identical for {n_grd}/"
+          f"{len(same_best)} images with the same best caption")
+    return launches
+
+
+def run_bf16_train(params_np, state_np):
+    """Phase 20: Sub_GC_Kar training in bf16 + bf16 gates + bf16 residuals
+    (bench.py's train step) at the preset's batch.  Returns (row bf16
+    kernel launches of its val pass, stats)."""
+    import torch
+    from subgc_tpu_torch import build_configs
+    from subgc_tpu_torch.train.step import batch_to_device, make_val_step
+    cfg, tcfg, _ = build_configs("Sub_GC_Kar", mode="train", model=dict(
+        BF16_MODEL, bf16_residuals=True))
+    ts, batch_np, stats = run_train_steps("Sub_GC_Kar bf16 train", cfg, tcfg,
+                                          params_np, state_np, 3, 0, seed=0)
+    check_train_grads_bf16(cfg, params_np, state_np, seed=1)
+    loss, cpu_loss, row, _ = _val_pass("Sub_GC_Kar bf16 val pass", cfg, ts,
+                                       batch_np, cfg.seq_length + 1, 0,
+                                       rtol=1e-3)
+    f32_loss = make_val_step(cfg.replace(
+        compute_dtype="float32", bf16_lstm_gates=False, bf16_residuals=False))(
+        ts.params, ts.model_state, batch_to_device(batch_np, "cuda")).item()
+    if abs(loss - f32_loss) > 1e-2 * abs(f32_loss):
+        fail(f"bf16 val loss {loss} against float32 {f32_loss}")
+    print(f"Sub_GC_Kar bf16 val loss {loss:.6f}: cpu {cpu_loss:.6f}, card "
+          f"float32 {f32_loss:.6f}")
+    del ts
+    torch.cuda.empty_cache()
+    return row, {**stats, "val_loss": loss, "val_loss_cpu": cpu_loss,
+                 "val_loss_f32": f32_loss}
+
+
+def check_train_grads_bf16(cfg, params_np, state_np, seed):
+    """Card against CPU in the bf16 chain: one backward on
+    TRAIN_CHECK_IMAGES images at full width, the loss within rtol 1e-3.
+    Every live gradient (norm above 1e-6 of the whole gradient's on the
+    CPU) is non-zero on the card; those that hold >= 1e-3 of the whole
+    norm have cosine >= 0.99 against the CPU's.  The smaller live ones are
+    the attention's score leaves (``ctx2att.b``, ``h2att``: ~5e-5 of the
+    norm), sums over every node and sentence that the softmax's shift
+    invariance cancels to ~1e-4 of their terms, so bf16 rounding in either
+    backward decides their direction (cosine 0.968 measured on an H100);
+    each is held within 1e-4 of the whole gradient's norm instead."""
+    import torch
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    batch = synthetic_train_batch(cfg, TRAIN_CHECK_IMAGES, seed=seed)
+    t0 = time.perf_counter()
+    card = _loss_and_grads(cfg, params_np, state_np, batch, "cuda")
+    cpu = _loss_and_grads(cfg, params_np, state_np, batch, "cpu")
+    if abs(card[0] - cpu[0]) > 1e-3 * abs(cpu[0]):
+        fail(f"bf16 gradients: loss card {card[0]} cpu {cpu[0]}")
+    names = _leaf_names(params_np)
+    total = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in cpu[1] if g is not None)))
+    worst, worst_name, n_live, small = 1.0, "", 0, {}
+    for name, gc, gg in zip(names, cpu[1], card[1]):
+        if gc is None or gg is None:
+            if (gc is None) != (gg is None):
+                fail(f"bf16 gradients: {name} has a gradient on one side "
+                     f"only")
+            continue
+        nc, ng = float(gc.norm()), float(gg.norm())
+        if nc <= 1e-6 * total:
+            continue
+        n_live += 1
+        if ng == 0.0:
+            fail(f"bf16 gradients: {name} has a zero gradient on the card")
+        if nc < 1e-3 * total:
+            small[name] = float((gg - gc).norm()) / total
+            if small[name] > 1e-4:
+                fail(f"bf16 gradients: {name} card vs cpu |d| "
+                     f"{small[name]:.3g} of the whole gradient's norm")
+            continue
+        cos = float((gc.double() * gg.double()).sum()) / (nc * ng)
+        if cos < 0.99:
+            fail(f"bf16 gradients: {name} cosine {cos:.4f} card vs cpu")
+        if cos < worst:
+            worst, worst_name = cos, name
+    print(f"Sub_GC_Kar bf16 gradients card vs cpu "
+          f"({time.perf_counter() - t0:.1f} s): loss {card[0]:.6f} / "
+          f"{cpu[0]:.6f}; {n_live} live parameters of {len(names)}, none "
+          f"lost, lowest cosine {worst:.5f} ({worst_name}); below 1e-3 of "
+          f"the norm, |d| / |whole gradient|: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in small.items()))
+
+
 def main():
     try:
         import torch
@@ -1320,6 +1681,9 @@ def main():
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 matmuls sum in float32, as the JAX package's do (the port's entry
+    # points set it too; this covers the phases that call modules directly)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device {name}, count {torch.cuda.device_count()}")
@@ -1422,9 +1786,17 @@ def main():
     eval_stats = run_eval(preds, cpu_preds, greedy_preds, ctl_preds, vocab)
     print(json.dumps({"eval": eval_stats}))
 
-    # ---- 14-16. training; first both kernels at the val passes' shapes
+    # ---- 17-19. the bf16 chain at test time, while the test params are on
+    # the card: both bf16 kernels alone, Sub_GC_Kar and Sub_GC_Flickr_GRD
     _, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
     S_val = tcfg.seq_per_img * tcfg.batch_size
+    bf16_shared, bf16_row = run_bf16_kernels(params, S_main, S_val)
+    bf16_launches, bf16_test = run_bf16_test(params, cpu_params, state,
+                                             examples, vocab, preds)
+    bf16_grd_launches = run_bf16_grounding(params, cpu_params, state,
+                                           examples, vocab)
+
+    # ---- 14-16. training; first both kernels at the val passes' shapes
     val_row_check = check_row_attention(params, S_val, seed=40)
     val_shared_check = check_attention(params, "image", S_val,
                                        tcfg.batch_size, seed=41, beams=1)
@@ -1435,6 +1807,15 @@ def main():
     print(json.dumps({"train": train_stats, "ctl_attention": ctl_check,
                       "val_row_attention": val_row_check,
                       "val_shared_attention": val_shared_check}))
+    # ---- 20. bf16 training
+    bf16_val_row, bf16_train = run_bf16_train(params_np, state)
+    print(json.dumps({"bf16": {
+        "test": bf16_test, "train": bf16_train,
+        "shared_attention_bf16": dict(zip(
+            ("kar_image_S160", "kar_subgraph_S160", "fanout_S2000",
+             "fullgc_S1_B3"), bf16_shared)),
+        "row_attention_bf16": dict(zip(("grd_R160", "val_R320"),
+                                       bf16_row))}}))
 
     kernels = [{
         "name": "shared_attention",
@@ -1460,6 +1841,30 @@ def main():
         "plain_ms": row_checks[0]["plain_ms"],
         "bound_ms": row_checks[0]["bound_ms"],
         "bound_by": row_checks[0]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "shared_attention_bf16",
+        "route": "cuda",
+        "source": "subgc_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "subgc_tpu/ops/pallas_attention.py:75",
+        "launches": bf16_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in bf16_shared),
+        "ms": bf16_shared[0]["ms"],
+        "plain_ms": bf16_shared[0]["plain_ms"],
+        "bound_ms": bf16_shared[0]["bound_ms"],
+        "bound_by": bf16_shared[0]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "row_attention_bf16",
+        "route": "cuda",
+        "source": "subgc_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "subgc_tpu/ops/pallas_attention.py:29",
+        "launches": bf16_grd_launches + bf16_val_row,
+        "max_abs_err": max(c["max_abs_err"] for c in bf16_row),
+        "ms": bf16_row[0]["ms"],
+        "plain_ms": bf16_row[0]["plain_ms"],
+        "bound_ms": bf16_row[0]["bound_ms"],
+        "bound_by": bf16_row[0]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ write ``captions_<tag>.npy`` (``ctl_captions_<tag>.npy`` for the SCT
 presets), ``grounding_file.json`` with ``--return_att 1`` and
 ``vis/vis.json`` with ``--dump_json 1``.  Configs resolve in the order
 preset, then the checkpoint's ``infos.json``, then flags; the weights load
-from the checkpoint's ``model.npz``.  ``--language_eval 1`` scores the
+from the checkpoint's ``model.npz``, and a checkpoint trained in bf16
+(``compute_dtype`` in its ``model_config``) decodes in bf16, as the JAX
+CLI's does.  ``--language_eval 1`` scores the
 captions against the split's GT (``--annotations_json``, else the label
 h5) and writes ``all_scores_<tag>_<oracle_num>-subgraph.npy``;
 ``--only_sent_eval 1`` re-scores a saved ``captions_<tag>.npy`` without
@@ -28,6 +30,8 @@ import json
 import os
 
 import numpy as np
+
+from ..device import f32_accumulation
 
 
 def parse_args(argv=None):
@@ -209,6 +213,7 @@ def _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag):
     return path, preds
 
 
+@f32_accumulation()          # bf16 matmuls sum in float32, as in JAX
 def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)

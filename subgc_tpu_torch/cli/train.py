@@ -11,9 +11,14 @@ either package (``model.npz`` + ``infos.json``; the port's Adam moments
 when its ``optimizer.npz`` matches), with ``--word_mapping`` for a vocab
 remap.  Batches load synchronously.
 
+``--compute_dtype bfloat16`` (with ``--bf16_lstm_gates`` and
+``--bf16_residuals``) trains in the bf16 chain over float32 parameters and
+Adam state, bf16 matmuls summing in float32; the checkpoint's
+``model_config`` records it, so ``cli/test.py`` decodes it in bf16.
+
 Flags whose code the port does not have yet stop with a message naming the
 ROADMAP item: ``--self_critical_after`` (SCST), ``--n_devices`` > 1,
-``--trace_steps``, ``--packed_path`` and ``--compute_dtype bfloat16``.
+``--trace_steps`` and ``--packed_path``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import os
 import time
 
 import numpy as np
+
+from ..device import f32_accumulation
 
 
 def parse_args(argv=None):
@@ -62,8 +69,11 @@ def parse_args(argv=None):
                    help="> 1 not ported yet (ROADMAP item 13)")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 not ported yet (ROADMAP item 15)")
-    p.add_argument("--bf16_lstm_gates", type=int, default=None)
+                   help="matmul compute dtype (params and optimizer stay "
+                        "float32)")
+    p.add_argument("--bf16_lstm_gates", type=int, default=None,
+                   help="with bfloat16: run the [S,4R] LSTM gate streams in "
+                        "bf16 too (c stays float32)")
     p.add_argument("--bf16_residuals", type=int, default=None,
                    help="store the LSTM's saved-for-backward residuals in "
                         "bf16 (forward unchanged)")
@@ -95,8 +105,6 @@ def _refuse_unported(args):
          "13 (parallelism)"),
         (args.trace_steps, "--trace_steps", "14 (profiling)"),
         (args.packed_path, "--packed_path", "14 (packed shards)"),
-        (args.compute_dtype == "bfloat16", "--compute_dtype bfloat16",
-         "15 (bf16 chain)"),
     ]
     for on, flag, item in refused:
         if on:
@@ -126,6 +134,7 @@ def _overrides(args):
     return overrides
 
 
+@f32_accumulation()          # bf16 matmuls sum in float32, as in JAX
 def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
@@ -220,7 +229,7 @@ def main(argv=None):
 
     print(f"training {args.model_type}: vocab {mcfg.vocab_size}, "
           f"{len(loader.split_ix['train'])} train images, "
-          f"batch {tcfg.batch_size}, device {dev}")
+          f"batch {tcfg.batch_size}, {mcfg.compute_dtype}, device {dev}")
     metrics_log = MetricsLogger(args.checkpoint_path)
     t_start = time.time()
     n_steps = 0

@@ -4,9 +4,8 @@ The fields, defaults and presets (train and test) are those of
 ``subgc_tpu/config.py``, so that an ``infos.json`` written by either package
 loads in the other (:func:`config_to_json`, :func:`config_from_json`).  Some
 fields select code paths that exist only in the JAX package (Pallas
-attention, beam chunking, folded or merged LSTM tables, bf16 gate streams);
-the port reads them but does not act on them, and says so where a caller
-would notice.
+attention, beam chunking, folded or merged LSTM tables); the port reads them
+but does not act on them, and says so where a caller would notice.
 """
 from __future__ import annotations
 
@@ -51,10 +50,10 @@ class ModelConfig:
     obj_num: int = 37
     rel_num: int = 65
 
-    # numerics: the port runs float32 only
-    compute_dtype: str = "float32"
-    bf16_lstm_gates: bool = False
-    bf16_residuals: bool = False
+    # numerics: params stay float32; products may run in bfloat16
+    compute_dtype: str = "float32"      # or "bfloat16": the bf16 chain
+    bf16_lstm_gates: bool = False       # [S, 4R] gate streams in bf16 too
+    bf16_residuals: bool = False        # LSTM backward residuals in bf16
     use_pallas_attention: bool = False  # JAX-only; the port's beam
     #                                     attention always runs its kernel
     fold_embed_ih: bool = False         # JAX-only decode table

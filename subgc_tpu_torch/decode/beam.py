@@ -139,7 +139,7 @@ def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     """
     if ecfg.group_size != 1:
         raise NotImplementedError("diverse beam groups are not ported yet")
-    D.require_float32(cfg)
+    params = D.cast_decoder_weights(params, cfg)     # once per call
     bdash = ecfg.beam_size
     S = feats.fc.shape[0]
     device = feats.fc.device

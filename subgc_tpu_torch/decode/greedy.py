@@ -66,7 +66,7 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     seeded with 0 on the tensors' device is used.  Runs without autograd,
     so params that require grad decode as their detached copies do.
     """
-    D.require_float32(cfg)
+    params = D.cast_decoder_weights(params, cfg)     # once per call
     S = feats.fc.shape[0]
     T = cfg.seq_length
     dev = feats.fc.device

@@ -1,5 +1,7 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection and matmul numerics shared by the port's entry points."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -13,3 +15,19 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """bfloat16 matmuls on the card sum their products in float32, as the
+    JAX package's accumulate (``preferred_element_type`` / XLA's default):
+    cuBLAS may otherwise reduce bf16 partial sums in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default).  The flag
+    is restored on exit.  Float32 matmuls are untouched."""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = prev

@@ -27,7 +27,7 @@ import torch
 from ..config import EvalConfig, ModelConfig
 from ..decode import beam as beam_mod
 from ..decode import greedy as greedy_mod
-from ..device import resolve_device
+from ..device import f32_accumulation, resolve_device
 from ..graph import SceneGraph, SubgraphSet, to_device
 from ..models import subgc
 from ..utils.text import decode_sequence
@@ -68,6 +68,7 @@ def _stack_examples(examples):
     return graph, subs
 
 
+@f32_accumulation()
 def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
                    vocab, split: str = "test", num_images: int = -1,
                    verbose: bool = True, batch_images: int = 16,
@@ -87,7 +88,8 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
     att_weights is None unless ``ecfg.return_att``.
 
     Top-k draws come from one generator on ``device`` for the whole split,
-    seeded with 2019 as the JAX package's default key is.
+    seeded with 2019 as the JAX package's default key is.  bfloat16 matmuls
+    sum in float32 throughout (``device.f32_accumulation``).
     """
     if not cfg.use_gpn:
         raise ValueError(

@@ -1,5 +1,5 @@
-"""TopDown attention-LSTM decoder, float32: inference and the
-teacher-forced training forward.
+"""TopDown attention-LSTM decoder: inference and the teacher-forced training
+forward, in float32 or in the bfloat16 chain.
 
 The counterpart of ``subgc_tpu/models/decoder.py`` (reference
 `models/AttModel.py:392-471`, training loop :157-175): att-LSTM -> additive
@@ -18,6 +18,17 @@ package's XLA attention written in torch ops under autograd.
 
 Training draws every dropout mask and scheduled-sampling token from an
 explicit ``torch.Generator``; without one there is no dropout.
+
+``cfg.compute_dtype="bfloat16"`` is the JAX package's dtype chain, op for
+op (``subgc_tpu/models/decoder.py``): parameters stay float32 masters and
+:func:`cast_decoder_weights` casts the matmul weights once per call
+(biases stay float32); a product of bf16 operands is rounded to bf16 and
+then, unless kept (``_matmul(..., keep=True)``, the bf16 gate streams),
+taken back to float32 to meet its bias; the LSTM state's ``h`` rides in
+bf16 and ``c`` in float32; the node streams ``att``/``p_att`` are stored in
+bf16 after their float32-biased projection.  ``bf16_lstm_gates`` also keeps
+the [S, 4R] gate streams and their sigmoid/tanh in bf16.  Under autograd the
+casts pass the gradients on to the float32 leaves.
 """
 from __future__ import annotations
 
@@ -51,21 +62,63 @@ class PreparedFeatures(NamedTuple):
     img_ix: Optional[torch.Tensor] = None      # [S] row -> image
 
 
+F32 = torch.float32
+
+
 def init_state(shape, cfg: ModelConfig, device) -> DecoderState:
+    """Zero state: ``h`` in the compute dtype (three matmuls re-read it each
+    step), ``c`` in float32 (the accumulator)."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    z = torch.zeros(shape + (cfg.rnn_size,), dtype=torch.float32,
-                    device=device)
-    return DecoderState(z, z, z, z)
+    shape = shape + (cfg.rnn_size,)
+    h = torch.zeros(shape, dtype=cfg.cdtype, device=device)
+    c = h if cfg.cdtype == F32 else torch.zeros(shape, dtype=F32,
+                                                 device=device)
+    return DecoderState(h, c, h, c)
 
 
-def _dense(x, p):
-    return x @ p["w"] + p["b"]
+def _cast(w, dt):
+    return w if w.dtype == dt else w.to(dt)
 
 
-def require_float32(cfg: ModelConfig):
-    if cfg.cdtype != torch.float32:
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port runs float32 only")
+def _dense(x, p, dt=F32):
+    """``x @ w + b``; in bf16 the product is rounded to bf16, then meets
+    the float32 bias (JAX ``decoder.py:61-65``)."""
+    if dt == F32:
+        return x @ p["w"] + p["b"]
+    return (_cast(x, dt) @ _cast(p["w"], dt)).float() + p["b"]
+
+
+def _matmul(x, w, dt, keep=False):
+    """``x @ w`` in the compute dtype: in bf16 the product is rounded to
+    bf16 and, unless ``keep`` (the bf16 gate streams), taken back to
+    float32 (JAX ``decoder.py:68-75``)."""
+    if dt == F32:
+        return x @ w
+    y = _cast(x, dt) @ _cast(w, dt)
+    return y if keep else y.float()
+
+
+def cast_decoder_weights(params, cfg: ModelConfig):
+    """The decoder's matmul weights and the word-embedding table cast to
+    the compute dtype once, before a decode or a teacher-forced pass, so
+    that no step casts them again (JAX ``decoder.py:78-95``).  Biases stay
+    float32 (they meet float32 sums), but for the LSTMs' under bf16 gates,
+    which every step adds in bf16 (JAX casts them there each step, to the
+    same values).  Float32 returns ``params`` itself.  Under autograd the
+    casts carry the gradients to the float32 leaves."""
+    dt = cfg.cdtype
+    if dt == F32:
+        return params
+    dec = dict(params["decoder"])
+    dec["embed"] = _cast(dec["embed"], dt)
+    for k in ["fc_embed1", "fc_embed2", "att_embed", "ctx2att", "h2att",
+              "alpha_net", "logit"]:
+        dec[k] = {**dec[k], "w": _cast(dec[k]["w"], dt)}
+    lstm = ("w", "b") if cfg.bf16_lstm_gates else ("w",)
+    for k in ["att_lstm", "lang_lstm"]:
+        dec[k] = {kk: _cast(v, dt) if kk.startswith(lstm) else v
+                  for kk, v in dec[k].items()}
+    return {**params, "decoder": dec}
 
 
 def _dropout(x, rate, generator, train):
@@ -94,11 +147,14 @@ def _project_fc(params, fc_feats, cfg: ModelConfig, generator=None,
     """fc_embed1/2 (with train dropout) and the precomputed att-LSTM w_ih
     slice for fc (fc is constant across decode steps)."""
     dec = params["decoder"]
-    fc = torch.relu(_dense(fc_feats, dec["fc_embed1"]))
-    fc = torch.relu(_dense(fc, dec["fc_embed2"]))
+    dt = cfg.cdtype
+    fc = torch.relu(_dense(fc_feats, dec["fc_embed1"], dt))
+    fc = torch.relu(_dense(fc, dec["fc_embed2"], dt))
     fc = _dropout(fc, cfg.drop_prob_lm, generator, train)
     R1 = cfg.rnn_size
-    fc_ih = fc @ dec["att_lstm"]["w_ih"][R1:2 * R1]
+    # kept in bf16 under bf16 gates (JAX decoder.py:341-342)
+    fc_ih = _matmul(fc, dec["att_lstm"]["w_ih"][R1:2 * R1], dt,
+                    keep=cfg.bf16_lstm_gates)
     return fc, fc_ih
 
 
@@ -132,7 +188,7 @@ def att_embed(params, att_feats, att_mask, cfg: ModelConfig,
                              "(state['att_bn'] from init_params)")
         x, s0 = _bn_flat(x, dec["att_bn0"], bn_state["bn0"], train, att_mask)
         new_bn = {**bn_state, "bn0": s0}
-    att = torch.relu(_dense(x, dec["att_embed"]))
+    att = torch.relu(_dense(x, dec["att_embed"], cfg.cdtype))
     att = _dropout(att, cfg.drop_prob_lm, generator, train)
     if cfg.use_bn == 2:
         att, s1 = _bn_flat(att, dec["att_bn1"], new_bn["bn1"], train,
@@ -153,12 +209,12 @@ def prepare_features_bn(params, fc_feats, att_feats, att_mask,
     new bn_state).  The layout of the training forward (one row per
     sentence over its chosen sub-graph's nodes) and of the Full-GC test
     path (one row per image over all of its nodes)."""
-    require_float32(cfg)
     fc, fc_ih = _project_fc(params, fc_feats, cfg, generator, train)
     att, new_bn = att_embed(params, att_feats, att_mask, cfg, train,
                             generator, bn_state)
-    p_att = _dense(att, params["decoder"]["ctx2att"])
-    return PreparedFeatures(fc=fc, att=att, p_att=p_att, mask=att_mask,
+    p_att = _dense(att, params["decoder"]["ctx2att"], cfg.cdtype)
+    return PreparedFeatures(fc=fc, att=_cast(att, cfg.cdtype),
+                            p_att=_cast(p_att, cfg.cdtype), mask=att_mask,
                             fc_ih=fc_ih), new_bn
 
 
@@ -172,7 +228,6 @@ def prepare_features_shared_train(params, fc_feats, x_obj, mem,
     (labels are image-major).  att_embed dropout is drawn per image node,
     shared by the image's sentences, as in the JAX package.  Raises under
     ``use_bn``: train-time BatchNorm statistics cover the per-row layout."""
-    require_float32(cfg)
     if cfg.use_bn:
         raise ValueError(
             "share_att_train is incompatible with use_bn: train-time BN "
@@ -181,10 +236,10 @@ def prepare_features_shared_train(params, fc_feats, x_obj, mem,
     node_mask = torch.ones(x_obj.shape[:-1], dtype=mem.dtype,
                            device=mem.device)
     att_img, _ = att_embed(params, x_obj, node_mask, cfg, train, generator)
-    p_att_img = _dense(att_img, params["decoder"]["ctx2att"])
+    p_att_img = _dense(att_img, params["decoder"]["ctx2att"], cfg.cdtype)
     return PreparedFeatures(fc=fc, att=None, p_att=None, mask=mem,
-                            fc_ih=fc_ih, att_img=att_img,
-                            p_att_img=p_att_img)
+                            fc_ih=fc_ih, att_img=_cast(att_img, cfg.cdtype),
+                            p_att_img=_cast(p_att_img, cfg.cdtype))
 
 
 def _gather_nodes(x_img, ind):
@@ -212,26 +267,27 @@ def prepare_features_nodes(params, fc_feats, x_obj_img, obj_ind, att_mask,
     zero-fill comes before ``ctx2att``, so a padded slot's ``p_att`` is the
     ``ctx2att`` bias, as in :func:`prepare_features_bn`.
     """
-    require_float32(cfg)
     dec = params["decoder"]
+    dt = cfg.cdtype
     fc, fc_ih = _project_fc(params, fc_feats, cfg)
     node_mask = torch.ones(x_obj_img.shape[:-1], dtype=att_mask.dtype,
                            device=att_mask.device)
     att_img, _ = att_embed(params, x_obj_img, node_mask, cfg,
                            bn_state=bn_state)
-    p_att_img = _dense(att_img, dec["ctx2att"])
+    p_att_img = _dense(att_img, dec["ctx2att"], dt)
     if image_shared:
         mem = node_membership(obj_ind, att_mask, x_obj_img.shape[-2])
         return PreparedFeatures(fc=fc, att=None, p_att=None, mask=mem,
-                                fc_ih=fc_ih, att_img=att_img,
-                                p_att_img=p_att_img)
+                                fc_ih=fc_ih, att_img=_cast(att_img, dt),
+                                p_att_img=_cast(p_att_img, dt))
     att = _gather_nodes(att_img, obj_ind)
     if cfg.use_bn:
         att = att * att_mask[..., None]
-        p_att = _dense(att, dec["ctx2att"])
+        p_att = _dense(att, dec["ctx2att"], dt)
     else:
         p_att = _gather_nodes(p_att_img, obj_ind)
-    return PreparedFeatures(fc=fc, att=att, p_att=p_att, mask=att_mask,
+    return PreparedFeatures(fc=fc, att=_cast(att, dt),
+                            p_att=_cast(p_att, dt), mask=att_mask,
                             fc_ih=fc_ih)
 
 
@@ -253,11 +309,14 @@ def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):
     * per-row streams (``att``/``p_att`` [S, N, *]; attention capture and
       grounding): :func:`row_attention`.
 
-    Returns (att_res, weights).
+    The kernels take the streams' storage dtype: float32, or bfloat16 in
+    the bf16 chain, where ``wh`` and ``v`` come cast (a no-op after
+    :func:`cast_decoder_weights`).  Returns (att_res, weights), float32.
     """
     dec = params["decoder"]
-    wh, bh = dec["h2att"]["w"], dec["h2att"]["b"]
-    v, bv = dec["alpha_net"]["w"], dec["alpha_net"]["b"]
+    dt = (feats.p_att_img if feats.att_img is not None else feats.p_att).dtype
+    wh, bh = _cast(dec["h2att"]["w"], dt), dec["h2att"]["b"]
+    v, bv = _cast(dec["alpha_net"]["w"], dt), dec["alpha_net"]["b"]
     if h.dim() == 3:
         if feats.att_img is not None:
             p, a, idx = feats.p_att_img, feats.att_img, feats.img_ix
@@ -301,14 +360,27 @@ def attention_teacher(params, h, feats: PreparedFeatures):
       S // B consecutive rows each, over the images' [B, n, *] streams and
       the rows' membership mask [S, n].
 
-    Returns (att_res [S, D], weights [S, N]).
+    In the bf16 chain (bfloat16 streams) every op rounds as the XLA path's
+    source does (the table in ``ops/attention.py``): the projection's
+    product, then its biased sum, the add and the tanh in bf16, the logit
+    product rounded before its float32 bias, softmax and renormalisation in
+    float32, the weights rounded to bf16 for a float32-accumulated sum.
+
+    Returns (att_res [S, D], weights [S, N]), float32.
     """
     dec = params["decoder"]
     if h.dim() != 2:
         raise ValueError("attention_teacher takes one query per row, h "
                          "[S, R]; the beam layouts decode under no_grad")
-    att_h = _dense(h, dec["h2att"])                           # [S, H]
-    v, bv = dec["alpha_net"]["w"], dec["alpha_net"]["b"]
+    dt = (feats.p_att_img if feats.att_img is not None else feats.p_att).dtype
+    att_h = _cast(_dense(h, dec["h2att"], dt), dt)            # [S, H]
+
+    def logits(dot):
+        return _dense(dot, dec["alpha_net"], dt)[..., 0]
+
+    def weighted(w, a):                 # float32 sums of the bf16 products
+        return w @ a if dt == F32 else w.to(dt).float() @ a.float()
+
     if feats.att_img is not None:
         a, p = feats.att_img, feats.p_att_img
         if a.dim() == 2:                        # single-image layout
@@ -321,17 +393,17 @@ def attention_teacher(params, h, feats: PreparedFeatures):
                 f"S={S} not divisible by B={B}")
         K = S // B
         dot = torch.tanh(p[:, None] + att_h.reshape(B, K, 1, -1))
-        e = (dot @ v)[..., 0] + bv                            # [B, K, n]
+        e = logits(dot)                                       # [B, K, n]
         w = torch.softmax(e, dim=-1)
         w = w * feats.mask.reshape(B, K, n)
         w = w / w.sum(-1, keepdim=True)
-        return (w @ a).reshape(S, -1), w.reshape(S, n)
+        return weighted(w, a).reshape(S, -1), w.reshape(S, n)
     dot = torch.tanh(feats.p_att + att_h[:, None, :])         # [S, N, H]
-    e = (dot @ v)[..., 0] + bv                                # [S, N]
+    e = logits(dot)                                           # [S, N]
     w = torch.softmax(e, dim=-1)
     w = w * feats.mask
     w = w / w.sum(-1, keepdim=True)
-    return (w[:, None, :] @ feats.att)[:, 0], w
+    return weighted(w[:, None, :], feats.att)[:, 0], w
 
 
 def _needs_autograd(*tensors):
@@ -342,15 +414,32 @@ def _needs_autograd(*tensors):
         t is not None and t.requires_grad for t in tensors)
 
 
-def _lstm_nonlin(g, c):
-    """LSTM cell nonlinearity on fully-formed gates g = gx + gh + biases."""
+def _sigmoid(x):
+    """The logistic function; in bf16 as the JAX package's lowers on bf16
+    operands, ``1 / (1 + exp(-x))`` with every op rounded to bf16 (one
+    rounding of the float32 sigmoid differs in ~1/3 of the elements)."""
+    if x.dtype == F32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def _lstm_nonlin(g, c, dt=F32, bf16_gates=False):
+    """LSTM cell nonlinearity on fully-formed gates g = gx + gh + biases
+    (JAX ``decoder.py:142-157``).  Float32 gates: gate math and ``c`` in
+    float32, the new ``h`` cast to the compute dtype.  Bf16 gates: sigmoid
+    and tanh in bf16, ``c2 = f c + (i gg)`` in float32, ``h2`` rounded to
+    bf16."""
     i, f, gg, o = torch.chunk(g, 4, dim=-1)
-    i = torch.sigmoid(i)
-    f = torch.sigmoid(f)
-    o = torch.sigmoid(o)
+    i = _sigmoid(i)
+    f = _sigmoid(f)
+    o = _sigmoid(o)
     gg = torch.tanh(gg)
+    if bf16_gates and dt != F32:
+        c2 = f.float() * c + (i * gg).float()
+        return (o.float() * torch.tanh(c2)).to(dt), c2
     c2 = f * c + i * gg
-    return o * torch.tanh(c2), c2
+    h2 = o * torch.tanh(c2)
+    return (h2 if dt == F32 else h2.to(dt)), c2
 
 
 class _LSTMNonlinB16R(torch.autograd.Function):
@@ -363,8 +452,9 @@ class _LSTMNonlinB16R(torch.autograd.Function):
     from them."""
 
     @staticmethod
-    def forward(ctx, g, c):
-        h2, c2 = _lstm_nonlin(g, c)
+    def forward(ctx, g, c, dt=F32, bf16_gates=False):
+        h2, c2 = _lstm_nonlin(g, c, dt, bf16_gates)
+        ctx.g_dtype = g.dtype
         ctx.save_for_backward(g.to(torch.bfloat16), c.to(torch.bfloat16),
                               c2.to(torch.bfloat16))
         return h2, c2
@@ -372,6 +462,7 @@ class _LSTMNonlinB16R(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh2, dc2):
         g, c, c2 = (t.float() for t in ctx.saved_tensors)
+        dh2, dc2 = dh2.float(), dc2.float()
         gi, gf, gg_, go = torch.chunk(g, 4, dim=-1)
         i = torch.sigmoid(gi)
         f = torch.sigmoid(gf)
@@ -384,16 +475,25 @@ class _LSTMNonlinB16R(torch.autograd.Function):
                         dc * c * (f * (1.0 - f)),        # d/d gf
                         dc * i * (1.0 - gg * gg),        # d/d gg
                         do * (o * (1.0 - o))], dim=-1)   # d/d go
-        return dg, dc * f
+        # dg in the gate streams' dtype (bf16 under bf16 gates), as the
+        # JAX vjp returns it (decoder.py:206-207)
+        return dg.to(ctx.g_dtype), dc * f, None, None
 
 
-def _lstm_cell_gx(p, gx, h, c, bf16_resid: bool = False):
-    """LSTM cell with the input-side gates (x @ w_ih + b_ih) precomputed;
-    ``bf16_resid`` keeps bfloat16 backward residuals (training)."""
-    g = gx + (h @ p["w_hh"] + p["b_hh"])
+def _lstm_cell_gx(p, gx, h, c, dt=F32, bf16_gates: bool = False,
+                  bf16_resid: bool = False):
+    """LSTM cell with the input-side gates (x @ w_ih + b_ih) precomputed
+    (JAX ``decoder.py:225-244``).  Bf16 gates: ``gx`` is bf16 and the
+    recurrent product and ``b_hh`` join it in bf16.  ``bf16_resid`` keeps
+    bfloat16 backward residuals (training)."""
+    if bf16_gates and dt != F32:
+        g = (gx + _matmul(h, p["w_hh"], dt, keep=True)
+             + _cast(p["b_hh"], dt))
+    else:
+        g = gx + _dense(h, {"w": p["w_hh"], "b": p["b_hh"]}, dt)
     if bf16_resid:
-        return _LSTMNonlinB16R.apply(g, c)
-    return _lstm_nonlin(g, c)
+        return _LSTMNonlinB16R.apply(g, c, dt, bf16_gates)
+    return _lstm_nonlin(g, c, dt, bf16_gates)
 
 
 def decode_step(params, state: DecoderState, token,
@@ -409,20 +509,32 @@ def decode_step(params, state: DecoderState, token,
     ``xt_ih`` is the word embedding's precomputed att-LSTM gate share
     [S, 4R] (:func:`forward_teacher` hoists all T of them).  Attention runs
     through the kernels unless this is training or autograd needs a
-    gradient through it (:func:`attention_teacher`)."""
+    gradient through it (:func:`attention_teacher`).
+
+    In the bf16 chain the products round as JAX ``decode_step``'s do
+    (``decoder.py:558-639``); under ``bf16_lstm_gates`` ``fc_ih``, the
+    input biases and ``xt_ih`` join the gates in bf16.  Callers cast the
+    weights once (:func:`cast_decoder_weights`); uncast ones are cast per
+    product, to the same values."""
     dec = params["decoder"]
+    dt = cfg.cdtype
     R1 = cfg.rnn_size
     b16r = cfg.bf16_residuals and train
+    bf16g = cfg.bf16_lstm_gates and dt != F32
     w_ih = dec["att_lstm"]["w_ih"]
+    b_ih_a = dec["att_lstm"]["b_ih"]
     fc_ih = feats.fc_ih if token.dim() == 1 else feats.fc_ih[:, None, :]
+    if bf16g:
+        b_ih_a = _cast(b_ih_a, dt)
+        fc_ih = _cast(fc_ih, dt)
     if xt_ih is None:
         xt = torch.relu(dec["embed"][token])
         xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
-        xt_ih = xt @ w_ih[2 * R1:]
-    gx_att = (state.h_lang @ w_ih[:R1] + fc_ih + xt_ih
-              + dec["att_lstm"]["b_ih"])
+        xt_ih = _matmul(xt, w_ih[2 * R1:], dt, keep=bf16g)
+    gx_att = (_matmul(state.h_lang, w_ih[:R1], dt, keep=bf16g) + fc_ih
+              + xt_ih + b_ih_a)
     h_att, c_att = _lstm_cell_gx(dec["att_lstm"], gx_att, state.h_att,
-                                 state.c_att, b16r)
+                                 state.c_att, dt, bf16g, b16r)
 
     if train or _needs_autograd(
             h_att, feats.att, feats.p_att, feats.att_img, feats.p_att_img,
@@ -433,12 +545,15 @@ def decode_step(params, state: DecoderState, token,
         att_res, att_w = attention(params, h_att, feats, cfg)
 
     w_ih_l = dec["lang_lstm"]["w_ih"]
-    gx_lang = (att_res @ w_ih_l[:R1] + h_att @ w_ih_l[R1:]
-               + dec["lang_lstm"]["b_ih"])
+    b_ih_l = dec["lang_lstm"]["b_ih"]
+    if bf16g:
+        b_ih_l = _cast(b_ih_l, dt)
+    gx_lang = (_matmul(att_res, w_ih_l[:R1], dt, keep=bf16g)
+               + _matmul(h_att, w_ih_l[R1:], dt, keep=bf16g) + b_ih_l)
     h_lang, c_lang = _lstm_cell_gx(dec["lang_lstm"], gx_lang, state.h_lang,
-                                   state.c_lang, b16r)
+                                   state.c_lang, dt, bf16g, b16r)
     out = _dropout(h_lang, cfg.drop_prob_lm, generator, train)
-    logprobs = torch.log_softmax(_dense(out, dec["logit"]), dim=-1)
+    logprobs = torch.log_softmax(_dense(out, dec["logit"], dt), dim=-1)
     return logprobs, DecoderState(h_att, c_att, h_lang, c_lang), att_w
 
 
@@ -456,8 +571,11 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
     ``ss_prob``, a draw from the previous step's distribution; the draws
     come from ``generator`` (a generator seeded with 0 when none is
     given, which then also means no dropout).
+
+    The weights are cast to the compute dtype once, here; under bf16 gates
+    the hoisted products stay in bf16 (JAX ``decoder.py:691-693``).
     """
-    require_float32(cfg)
+    params = cast_decoder_weights(params, cfg)
     S, T2 = seq.shape
     n_steps = T2 - 1
     dec = params["decoder"]
@@ -466,10 +584,13 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
     lps = []
     if ss_prob is None:
         R1 = cfg.rnn_size
+        dt = cfg.cdtype
         xt = torch.relu(dec["embed"][seq[:, :n_steps].T])      # [T, S, E]
         xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
-        xt_ih = (xt.reshape(n_steps * S, -1)
-                 @ dec["att_lstm"]["w_ih"][2 * R1:]).reshape(n_steps, S, -1)
+        xt_ih = _matmul(xt.reshape(n_steps * S, -1),
+                        dec["att_lstm"]["w_ih"][2 * R1:], dt,
+                        keep=cfg.bf16_lstm_gates and dt != F32
+                        ).reshape(n_steps, S, -1)
         for i in range(n_steps):
             lp, state, _ = decode_step(params, state, seq[:, i], feats, cfg,
                                        train, generator, xt_ih=xt_ih[i])

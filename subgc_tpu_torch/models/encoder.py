@@ -6,7 +6,9 @@ scatter loop (`models/lib/gcn_backbone.py:55-67`), and message passing is
 two matmuls per collection unit (`graph_conv_unit.py:28-36`), with the
 Full-GC variant's BatchNorm between them and the adjacency product: running
 statistics at eval, batch statistics in training (which also return the
-updated running statistics).
+updated running statistics).  Under ``compute_dtype="bfloat16"`` the GCN's
+products run in bf16 as the JAX package's do; the feature fusion stays
+float32 there too.
 """
 from __future__ import annotations
 
@@ -102,12 +104,23 @@ def make_adjacency(rel_ind, n_obj: int):
     return adj_s.transpose(1, 2), adj_o.transpose(1, 2)
 
 
-def _collect(source, adj, unit, ustate, train: bool = False):
+def _collect(source, adj, unit, ustate, cfg: ModelConfig,
+             train: bool = False):
     """One collection unit: low-rank transform of source, BatchNorm if the
     unit has one, adjacency average (graph_conv_unit.py:28-36).  adj is
     [B,T,S], source [B,S,L].  Returns (features, the unit's new BatchNorm
-    state)."""
-    h = _dense(_dense(source, unit["lft"]), unit["rgt"])
+    state).
+
+    In bf16 (JAX ``encoder.py:102-119``): both Linears in bf16, bias added
+    in bf16; back to float32 before BatchNorm; the adjacency product of the
+    bf16 operands summed in float32; the degree division in float32."""
+    dt = cfg.cdtype
+    if dt == torch.float32:
+        h = _dense(_dense(source, unit["lft"]), unit["rgt"])
+    else:
+        def dense(x, p):
+            return x @ p["w"].to(dt) + p["b"].to(dt)
+        h = dense(dense(source.to(dt), unit["lft"]), unit["rgt"]).float()
     if "bn" in unit:
         if train:
             b, s_, l_ = h.shape
@@ -116,6 +129,8 @@ def _collect(source, adj, unit, ustate, train: bool = False):
             h = y.reshape(b, s_, l_)
         else:
             h = batch_norm_1d(h, unit["bn"], ustate)
+    if dt != torch.float32:
+        h = h.to(dt).float()            # adj is 0/1: exact in bf16
     collect = adj @ h
     degree = adj.sum(2)[..., None]
     return torch.relu(collect / (degree + 1e-7)), ustate
@@ -143,10 +158,12 @@ def gcn_forward(params, state, x_obj, x_pred, rel_ind, cfg: ModelConfig,
     for i, units in enumerate(params["gcn"]):
         us = state["gcn_bn"][i]
         # both node and edge updates read the *input* features of this layer
-        o_from_s, us0 = _collect(x_pred, adj_s, units[0], us[0], train)
-        o_from_o, us1 = _collect(x_pred, adj_o, units[1], us[1], train)
-        p_from_s, us2 = _collect(x_obj, adj_s_t, units[2], us[2], train)
-        p_from_o, us3 = _collect(x_obj, adj_o_t, units[3], us[3], train)
+        o_from_s, us0 = _collect(x_pred, adj_s, units[0], us[0], cfg, train)
+        o_from_o, us1 = _collect(x_pred, adj_o, units[1], us[1], cfg, train)
+        p_from_s, us2 = _collect(x_obj, adj_s_t, units[2], us[2], cfg,
+                                 train)
+        p_from_o, us3 = _collect(x_obj, adj_o_t, units[3], us[3], cfg,
+                                 train)
         x_obj = (o_from_s + o_from_o) / 2
         x_pred = (p_from_s + p_from_o) / 2
         new_bn.append([us0, us1, us2, us3])

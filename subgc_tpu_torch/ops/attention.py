@@ -31,6 +31,36 @@ raises.  The kernels are forward-only, as the Pallas kernels are: asked for
 a gradient (grad mode on and an input that requires grad) they raise rather
 than return outputs that autograd cannot see through.  Training attends
 through ``models/decoder.py::attention_teacher`` instead.
+
+Two storage dtypes, as the Pallas kernels are generic over theirs.  Either
+every stream (``h``, ``p_att``, ``att``, ``wh``, ``v``) is float32, or every
+stream is bfloat16; ``bh``, ``bv`` and ``mask`` are float32 in both.  Any
+other mix raises, on the CPU as on the card.  In bfloat16 each op rounds
+where its TPU kernel rounds (the ``compute_dtype="bfloat16"`` chain):
+
+================  ======================  =================  ==================
+stage             shared kernel, bf16     row kernel, bf16   attention_teacher
+                  (Pallas ``_attention_   (Pallas            (XLA ``decoder.
+                  shared_kernel``)        ``_attention_      attention``,
+                                          kernel``)          source semantics)
+================  ======================  =================  ==================
+``ah = h wh``     f32 sums, ``+ bh``,     f32 sums,          product rounded,
+                  ONE rounding            ``+ bh``, f32      ``+ bh``, rounded
+``p + ah``, tanh  bf16, each rounded      f32 (p upcast)     bf16, each rounded
+``e = dot v+bv``  f32 sums, not rounded   f32                product rounded,
+                                                             ``+ bv`` f32
+softmax, renorm   f32                     f32                f32
+weighted sum      ``w`` rounded, f32      ``w`` f32, att     ``w`` rounded,
+                  sums                    upcast             f32 sums
+outputs           ``att_res`` f32 (its    both f32           f32
+                  consumer rounds it,
+                  as Pallas does), w f32
+================  ======================  =================  ==================
+
+:func:`attention_project` in bfloat16 returns the float32 projection (f32
+accumulation of the bf16 products, ``+ bh``), unrounded.  The bfloat16
+launches count in :data:`SHARED_BF16_LAUNCHES` and
+:data:`ROW_BF16_LAUNCHES`; :data:`PROJECT_LAUNCHES` counts every projection.
 """
 from __future__ import annotations
 
@@ -42,10 +72,12 @@ import torch
 from . import _build
 
 # kernel launches through the wrappers (a test or a run resets them):
-# shared_attention, row_attention, and the projection kernel, which every
-# one of the three wrappers launches
+# shared_attention and row_attention in float32 and in bfloat16, and the
+# projection kernel, which every one of the three wrappers launches
 LAUNCHES = 0
 ROW_LAUNCHES = 0
+SHARED_BF16_LAUNCHES = 0
+ROW_BF16_LAUNCHES = 0
 PROJECT_LAUNCHES = 0
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -57,6 +89,7 @@ MAX_SPLITS = 8
 MIN_SLICES_PER_SPLIT = 4
 
 _FNS = {}
+F32, BF16 = torch.float32, torch.bfloat16
 
 
 class Plan(NamedTuple):
@@ -125,6 +158,14 @@ def project_scratch(plan, Q, H, device):
                        device=device)
 
 
+def reset_launch_counts():
+    """Set every launch counter of this module to 0."""
+    global LAUNCHES, ROW_LAUNCHES, SHARED_BF16_LAUNCHES, ROW_BF16_LAUNCHES, \
+        PROJECT_LAUNCHES
+    LAUNCHES = ROW_LAUNCHES = SHARED_BF16_LAUNCHES = ROW_BF16_LAUNCHES = 0
+    PROJECT_LAUNCHES = 0
+
+
 def _fn(name, n_ptr, n_int):
     if name not in _FNS:
         fn = getattr(_build.load("attention"), name)
@@ -133,6 +174,23 @@ def _fn(name, n_ptr, n_int):
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
+
+
+def storage_dtype(op, streams, f32s):
+    """The storage dtype of a call: every tensor of ``streams`` (name ->
+    tensor) float32, or every one bfloat16, and every tensor of ``f32s``
+    float32.  Raises TypeError on any other mix (the table above)."""
+    dts = {t.dtype for t in streams.values()}
+    if len(dts) != 1 or not dts <= {F32, BF16}:
+        raise TypeError(
+            f"{op}: {', '.join(streams)} must be all float32 or all "
+            f"bfloat16; got " + ", ".join(f"{k} {t.dtype}"
+                                          for k, t in streams.items()))
+    for name, t in f32s.items():
+        if t.dtype != F32:
+            raise TypeError(f"{op}: {name} is {t.dtype}; it stays float32 in "
+                            f"either storage dtype")
+    return dts.pop()
 
 
 def _check_args(op, want, device):
@@ -174,11 +232,24 @@ def _raise_on(op, err):
         raise RuntimeError(f"{op} kernel failed: cudaError_t {err}")
 
 
+def _suffix(dt):
+    return "bf16" if dt == BF16 else "f32"
+
+
 # ---- the projection stage
 
 def attention_project_ref(h, wh, bh):
-    """Plain PyTorch version of the projection: h [Q,Hin] @ wh [Hin,H] + bh."""
+    """Plain PyTorch version of the projection: h [Q,Hin] @ wh [Hin,H] + bh
+    in float32 (bfloat16 h and wh: their exact products summed in
+    float32)."""
+    if h.dtype == BF16:
+        return h.float() @ wh.float() + bh
     return h @ wh + bh
+
+
+def _project_dtype(h, wh, bh):
+    return storage_dtype("attention_project", {"h": h, "wh": wh},
+                         {"bh": bh})
 
 
 def _check_project(h, wh, bh):
@@ -186,10 +257,10 @@ def _check_project(h, wh, bh):
         raise ValueError("attention_project: h must be [Q, Hin]")
     Q, Hin = h.shape
     H = wh.shape[-1]
-    f32 = torch.float32
+    dt = _project_dtype(h, wh, bh)
     _check_args("attention_project", {
-        "h": (h, (Q, Hin), f32), "wh": (wh, (Hin, H), f32),
-        "bh": (bh, (H,), f32)}, h.device)
+        "h": (h, (Q, Hin), dt), "wh": (wh, (Hin, H), dt),
+        "bh": (bh, (H,), F32)}, h.device)
     return Q, Hin, H
 
 
@@ -199,8 +270,8 @@ def run_attention_project(h, wh, bh, plan):
     _refuse_grad("attention_project", (h, wh, bh))
     Q, Hin, H = _check_project(h, wh, bh)
     part = project_scratch(plan, Q, H, h.device)
-    ah = torch.empty((Q, H), dtype=torch.float32, device=h.device)
-    fn = _fn("subgc_attention_project_f32", 5, 6)
+    ah = torch.empty((Q, H), dtype=F32, device=h.device)
+    fn = _fn(f"subgc_attention_project_{_suffix(h.dtype)}", 5, 6)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     _raise_on("attention_project",
               fn(h.data_ptr(), wh.data_ptr(), bh.data_ptr(), part.data_ptr(),
@@ -214,6 +285,7 @@ def attention_project(h, wh, bh):
     """``h @ wh + bh`` for every query: :func:`attention_project_ref` on CPU
     tensors, the projection kernel (then its split sum) on CUDA tensors."""
     if h.device.type == "cpu":
+        _project_dtype(h, wh, bh)
         return attention_project_ref(h, wh, bh)
     _device_check("attention_project", h)
     Q, Hin, H = _check_project(h, wh, bh)
@@ -226,31 +298,46 @@ def shared_attention_ref(h, p_att, att, mask, idx, wh, bh, v, bv):
     """Plain PyTorch version of the kernels (same signature and result).
 
     h [S,B,R], p_att [G,N,H], att [G,N,D], mask [S,N], idx [S] int,
-    wh [R,H], bh [H], v [H,1], bv [1] -> (att_res [S,B,D], w [S,B,N]).
-    Out-of-range ``idx`` entries clamp, as the JAX gather does.
+    wh [R,H], bh [H], v [H,1], bv [1] -> (att_res [S,B,D], w [S,B,N]),
+    float32.  Out-of-range ``idx`` entries clamp, as the JAX gather does.
+    Bfloat16 streams round as ``_attention_shared_kernel`` does (the table
+    above).
     """
     g = idx.long().clamp(0, p_att.shape[0] - 1)
     p = p_att[g]                                          # [S, N, H]
     a = att[g]                                            # [S, N, D]
-    ah = h @ wh + bh                                      # [S, B, H]
-    dot = torch.tanh(p[:, None] + ah[:, :, None, :])      # [S, B, N, H]
-    e = (dot @ v)[..., 0] + bv                            # [S, B, N]
+    if p_att.dtype == BF16:
+        ah = (h.float() @ wh.float() + bh).to(BF16)       # one rounding
+        dot = torch.tanh(p[:, None] + ah[:, :, None, :])  # bf16 add, tanh
+        e = (dot.float() @ v.float())[..., 0] + bv        # f32, unrounded
+    else:
+        ah = h @ wh + bh                                  # [S, B, H]
+        dot = torch.tanh(p[:, None] + ah[:, :, None, :])  # [S, B, N, H]
+        e = (dot @ v)[..., 0] + bv                        # [S, B, N]
     w = torch.softmax(e, dim=-1)
     w = w * mask[:, None, :]
     w = w / w.sum(-1, keepdim=True)
+    if p_att.dtype == BF16:
+        return w.to(BF16).float() @ a.float(), w
     return w @ a, w
+
+
+def _shared_dtype(h, p_att, att, mask, idx, wh, bh, v, bv):
+    return storage_dtype(
+        "shared_attention", {"h": h, "p_att": p_att, "att": att, "wh": wh,
+                             "v": v}, {"bh": bh, "bv": bv, "mask": mask})
 
 
 def _check(h, p_att, att, mask, idx, wh, bh, v, bv):
     S, B, R = h.shape
     G, N, H = p_att.shape
     D = att.shape[-1]
-    f32 = torch.float32
+    dt = _shared_dtype(h, p_att, att, mask, idx, wh, bh, v, bv)
     _check_args("shared_attention", {
-        "h": (h, (S, B, R), f32), "p_att": (p_att, (G, N, H), f32),
-        "att": (att, (G, N, D), f32), "mask": (mask, (S, N), f32),
-        "idx": (idx, (S,), torch.int32), "wh": (wh, (R, H), f32),
-        "bh": (bh, (H,), f32), "v": (v, (H, 1), f32), "bv": (bv, (1,), f32),
+        "h": (h, (S, B, R), dt), "p_att": (p_att, (G, N, H), dt),
+        "att": (att, (G, N, D), dt), "mask": (mask, (S, N), F32),
+        "idx": (idx, (S,), torch.int32), "wh": (wh, (R, H), dt),
+        "bh": (bh, (H,), F32), "v": (v, (H, 1), dt), "bv": (bv, (1,), F32),
     }, h.device)
     if not 1 <= B <= 4:
         raise ValueError(f"shared_attention: the kernel takes 1..4 beams, "
@@ -261,7 +348,7 @@ def _check(h, p_att, att, mask, idx, wh, bh, v, bv):
 def run_shared_attention(args, plan):
     """Both kernels of :func:`shared_attention` on CUDA tensors, at
     ``plan``."""
-    global LAUNCHES, PROJECT_LAUNCHES
+    global LAUNCHES, SHARED_BF16_LAUNCHES, PROJECT_LAUNCHES
     _refuse_grad("shared_attention", args)
     S, B, R, G, N, H, D = _check(*args)
     if plan.rows_per_block * B > MAX_QUERIES_PER_BLOCK:
@@ -269,31 +356,38 @@ def run_shared_attention(args, plan):
                          f"{B} beams exceed {MAX_QUERIES_PER_BLOCK} queries "
                          f"per block")
     dev = args[0].device
+    bf16 = args[1].dtype == BF16
     part = project_scratch(plan, S * B, H, dev)
-    out = torch.empty((S, B, D), dtype=torch.float32, device=dev)
-    w = torch.empty((S, B, N), dtype=torch.float32, device=dev)
-    fn = _fn("subgc_shared_attention_f32", 12, 11)
+    out = torch.empty((S, B, D), dtype=F32, device=dev)
+    w = torch.empty((S, B, N), dtype=F32, device=dev)
+    fn = _fn(f"subgc_shared_attention_{_suffix(args[1].dtype)}", 12, 11)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on("shared_attention",
               fn(*(t.data_ptr() for t in args), part.data_ptr(),
                  out.data_ptr(), w.data_ptr(), S, B, R, G, N, H, D, plan.bm,
                  plan.bn, plan.splits, plan.rows_per_block, stream))
-    LAUNCHES += 1
+    if bf16:
+        SHARED_BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     PROJECT_LAUNCHES += 1
     return out, w
 
 
 def shared_attention(h, p_att, att, mask, idx, wh, bh, v, bv):
-    """Beam-shared attention; see the module docstring for the layouts.
+    """Beam-shared attention; see the module docstring for the layouts and
+    the two storage dtypes.
 
     On CPU tensors this is :func:`shared_attention_ref`.  On CUDA tensors it
-    launches the kernels on the current stream (float32, contiguous,
-    ``idx`` int32) and raises on anything the kernels do not take.
+    launches the kernels on the current stream (float32 or bfloat16 streams
+    as the table says, contiguous, ``idx`` int32) and raises on anything
+    the kernels do not take.
     """
-    if h.device.type == "cpu":
-        return shared_attention_ref(h, p_att, att, mask, idx, wh, bh, v, bv)
-    _device_check("shared_attention", h)
     args = (h, p_att, att, mask, idx, wh, bh, v, bv)
+    if h.device.type == "cpu":
+        _shared_dtype(*args)
+        return shared_attention_ref(*args)
+    _device_check("shared_attention", h)
     S, B, R, G, N, H, D = _check(*args)
     return run_shared_attention(args, attention_plan(S, B, G, R, H))
 
@@ -304,8 +398,12 @@ def row_attention_ref(h, p_att, att, mask, wh, bh, v, bv):
     """Plain PyTorch version of the per-row kernels (``_attention_kernel``).
 
     h [R,Hin], p_att [R,N,H], att [R,N,D], mask [R,N], wh [Hin,H], bh [H],
-    v [H,1], bv [1] -> (att_res [R,D], w [R,N]).
+    v [H,1], bv [1] -> (att_res [R,D], w [R,N]), float32.  Bfloat16 streams
+    are upcast and the whole chain runs in float32, as the Pallas kernel
+    promotes them.
     """
+    if p_att.dtype == BF16:
+        h, p_att, att, wh, v = (t.float() for t in (h, p_att, att, wh, v))
     ah = h @ wh + bh                                      # [R, H]
     dot = torch.tanh(p_att + ah[:, None, :])              # [R, N, H]
     e = (dot @ v)[..., 0] + bv                            # [R, N]
@@ -315,6 +413,12 @@ def row_attention_ref(h, p_att, att, mask, wh, bh, v, bv):
     return (w[:, None, :] @ att)[:, 0], w
 
 
+def _row_dtype(h, p_att, att, mask, wh, bh, v, bv):
+    return storage_dtype(
+        "row_attention", {"h": h, "p_att": p_att, "att": att, "wh": wh,
+                          "v": v}, {"bh": bh, "bv": bv, "mask": mask})
+
+
 def _check_rows(h, p_att, att, mask, wh, bh, v, bv):
     if h.dim() != 2 or p_att.dim() != 3 or att.dim() != 3:
         raise ValueError("row_attention: h must be [R, Hin] and the streams "
@@ -322,12 +426,12 @@ def _check_rows(h, p_att, att, mask, wh, bh, v, bv):
     R, Hin = h.shape
     N, H = p_att.shape[1:]
     D = att.shape[-1]
-    f32 = torch.float32
+    dt = _row_dtype(h, p_att, att, mask, wh, bh, v, bv)
     _check_args("row_attention", {
-        "h": (h, (R, Hin), f32), "p_att": (p_att, (R, N, H), f32),
-        "att": (att, (R, N, D), f32), "mask": (mask, (R, N), f32),
-        "wh": (wh, (Hin, H), f32), "bh": (bh, (H,), f32),
-        "v": (v, (H, 1), f32), "bv": (bv, (1,), f32),
+        "h": (h, (R, Hin), dt), "p_att": (p_att, (R, N, H), dt),
+        "att": (att, (R, N, D), dt), "mask": (mask, (R, N), F32),
+        "wh": (wh, (Hin, H), dt), "bh": (bh, (H,), F32),
+        "v": (v, (H, 1), dt), "bv": (bv, (1,), F32),
     }, h.device)
     return R, Hin, N, H, D
 
@@ -335,20 +439,24 @@ def _check_rows(h, p_att, att, mask, wh, bh, v, bv):
 def run_row_attention(args, plan):
     """Both kernels of :func:`row_attention` on CUDA tensors, at ``plan``
     (one row per attention block)."""
-    global ROW_LAUNCHES, PROJECT_LAUNCHES
+    global ROW_LAUNCHES, ROW_BF16_LAUNCHES, PROJECT_LAUNCHES
     _refuse_grad("row_attention", args)
     R, Hin, N, H, D = _check_rows(*args)
     dev = args[0].device
+    bf16 = args[1].dtype == BF16
     part = project_scratch(plan, R, H, dev)
-    out = torch.empty((R, D), dtype=torch.float32, device=dev)
-    w = torch.empty((R, N), dtype=torch.float32, device=dev)
-    fn = _fn("subgc_row_attention_f32", 11, 8)
+    out = torch.empty((R, D), dtype=F32, device=dev)
+    w = torch.empty((R, N), dtype=F32, device=dev)
+    fn = _fn(f"subgc_row_attention_{_suffix(args[1].dtype)}", 11, 8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on("row_attention",
               fn(*(t.data_ptr() for t in args), part.data_ptr(),
                  out.data_ptr(), w.data_ptr(), R, Hin, N, H, D, plan.bm,
                  plan.bn, plan.splits, stream))
-    ROW_LAUNCHES += 1
+    if bf16:
+        ROW_BF16_LAUNCHES += 1
+    else:
+        ROW_LAUNCHES += 1
     PROJECT_LAUNCHES += 1
     return out, w
 
@@ -357,12 +465,14 @@ def row_attention(h, p_att, att, mask, wh, bh, v, bv):
     """Per-row attention (one query per row over the row's own streams).
 
     On CPU tensors this is :func:`row_attention_ref`.  On CUDA tensors it
-    launches the kernels on the current stream (float32, contiguous) and
-    raises on anything the kernels do not take.
+    launches the kernels on the current stream (float32 or bfloat16 streams
+    as the table says, contiguous) and raises on anything the kernels do
+    not take.
     """
-    if h.device.type == "cpu":
-        return row_attention_ref(h, p_att, att, mask, wh, bh, v, bv)
-    _device_check("row_attention", h)
     args = (h, p_att, att, mask, wh, bh, v, bv)
+    if h.device.type == "cpu":
+        _row_dtype(*args)
+        return row_attention_ref(*args)
+    _device_check("row_attention", h)
     R, Hin, N, H, D = _check_rows(*args)
     return run_row_attention(args, attention_plan(R, 1, R, Hin, H))

@@ -325,3 +325,169 @@ def test_wrappers_refuse_gradients_on_card(op):
     torch.cuda.synchronize()
     for t in (out if isinstance(out, tuple) else (out,)):
         assert t.grad_fn is None
+
+
+# ---- the bfloat16 storage variants (the compute_dtype="bfloat16" chain):
+# h, p_att, att, wh and v bf16; bh, bv and mask float32.  Kernel against
+# plain at the CPU tests' tolerances (tests/test_torch_port_bf16_attention
+# .py): shared weights atol 2e-3 and att_res, rounded to bf16 as its
+# consumer rounds it, rtol 1e-2 (a float32 sum in another order may round
+# ``ah`` one bf16 ulp apart); row and projection float32 math, as in
+# float32.
+
+BF16 = torch.bfloat16
+
+
+def _to_bf16(x, at):
+    """The tensors of ``x`` at positions ``at`` (the streams) in bf16."""
+    return [t.to(BF16) if i in at else t for i, t in enumerate(x)]
+
+
+SHARED_STREAMS = (0, 1, 2, 5, 7)       # h, p_att, att, wh, v
+ROW_STREAMS = (0, 1, 2, 4, 6)
+
+
+def _close_bf16_shared(out, w, r_out, r_w):
+    torch.testing.assert_close(w, r_w, rtol=0, atol=2e-3)
+    torch.testing.assert_close(out.to(BF16).float(), r_out.to(BF16).float(),
+                               rtol=1e-2, atol=1e-6)
+
+
+def test_check_accepts_bf16_streams():
+    x = _to_bf16(_inputs("image"), SHARED_STREAMS)
+    assert A._check(*x) == (37, 2, 64, 5, 37, 32, 64)
+    assert A._check_rows(*_to_bf16(_row_inputs(), ROW_STREAMS)) == \
+        (9, 64, 37, 32, 64)
+
+
+@pytest.mark.parametrize("bad", ["h", "p_att", "wh", "v", "bh", "bv",
+                                 "mask"])
+def test_check_rejects_mixed_storage_dtypes(bad):
+    """One stream left float32, or a float32-only tensor in bf16: both
+    the shared and the per-row checks raise (on any device)."""
+    pos = {"h": 0, "p_att": 1, "wh": 5, "v": 7, "bh": 6, "bv": 8,
+           "mask": 3}[bad]
+    x = _to_bf16(_inputs("subgraph"), SHARED_STREAMS)
+    x[pos] = x[pos].float() if x[pos].dtype == BF16 else x[pos].to(BF16)
+    with pytest.raises(TypeError):
+        A._check(*x)
+    row = [x[i] for i in (0, 1, 2, 3, 5, 6, 7, 8)]
+    row[0] = row[0][:, 0]
+    with pytest.raises(TypeError):
+        A._check_rows(*row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["image", "subgraph"])
+@pytest.mark.parametrize("beams", [1, 2, 3, 4])
+def test_bf16_kernel_matches_plain_on_card(layout, beams):
+    _cuda()
+    x = [t.cuda() for t in _to_bf16(_inputs(layout, B=beams, seed=beams),
+                                    SHARED_STREAMS)]
+    A.reset_launch_counts()
+    out, w = A.shared_attention(*x)
+    torch.cuda.synchronize()
+    assert (A.SHARED_BF16_LAUNCHES, A.LAUNCHES, A.PROJECT_LAUNCHES) == \
+        (1, 0, 1)
+    assert out.dtype == w.dtype == torch.float32
+    _close_bf16_shared(out, w, *A.shared_attention_ref(*x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["image", "subgraph"])
+@pytest.mark.parametrize("knobs", [
+    dict(splits=1), dict(splits=4), dict(bm=32, bn=128, splits=2),
+    dict(rows_per_block=4)])
+@pytest.mark.parametrize("dims", [dict(H=52, D=68), dict(H=64, D=66)])
+def test_bf16_kernel_plans_match_plain_on_card(layout, knobs, dims):
+    """Plans as in float32, at widths off the vector paths: a p_att row of
+    104 bytes (no bulk copy) and an att row of 66 values (no 4-value
+    loads)."""
+    _cuda()
+    x = [t.cuda() for t in _to_bf16(_inputs(
+        layout, S=41, B=2, G=5, R=130, seed=len(knobs), **dims),
+        SHARED_STREAMS)]
+    knobs = dict(knobs)
+    rpb = knobs.pop("rows_per_block", 1)
+    plan = A.project_plan(82, 130, dims["H"], **knobs)._replace(
+        rows_per_block=rpb)
+    _close_bf16_shared(*A.run_shared_attention(x, plan),
+                       *A.shared_attention_ref(*x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    dict(R=1), dict(R=9), dict(R=160, Hin=1000, H=512, D=1000),
+    dict(R=37, Hin=130, H=50, D=70), dict(R=300, Hin=96, H=200, D=128)])
+def test_bf16_row_kernel_matches_plain_on_card(shape):
+    """bf16 streams, float32 math in both (``_attention_kernel``'s
+    promotion): the float32 tolerances."""
+    _cuda()
+    x = [t.cuda() for t in _to_bf16(_row_inputs(seed=shape["R"], **shape),
+                                    ROW_STREAMS)]
+    A.reset_launch_counts()
+    out, w = A.row_attention(*x)
+    torch.cuda.synchronize()
+    assert (A.ROW_BF16_LAUNCHES, A.ROW_LAUNCHES) == (1, 0)
+    r_out, r_w = A.row_attention_ref(*x)
+    torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,Hin,H,knobs", [
+    (1, 64, 32, {}), (37, 130, 50, {}), (37, 130, 50, dict(splits=3)),
+    (200, 1000, 512, dict(splits=5)), (130, 1000, 200, dict(bm=128, bn=128)),
+    (320, 1000, 512, {})])
+def test_bf16_project_kernel_matches_plain_on_card(Q, Hin, H, knobs):
+    _cuda()
+    x = [t.cuda() for t in _project_inputs(Q, Hin, H, seed=Q)]
+    x[0], x[1] = x[0].to(BF16), x[1].to(BF16)
+    ah = A.run_attention_project(*x, A.project_plan(Q, Hin, H, **knobs))
+    torch.cuda.synchronize()
+    assert ah.dtype == torch.float32
+    torch.testing.assert_close(ah, A.attention_project_ref(*x), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["shared", "row", "project"])
+def test_bf16_kernels_repeat_bitwise_on_card(op):
+    _cuda()
+    if op == "shared":
+        x = _to_bf16(_inputs("image", S=160, B=2, G=16, R=1000, H=512,
+                             D=1000, seed=9), SHARED_STREAMS)
+        fn = A.shared_attention
+    elif op == "row":
+        x = _to_bf16(_row_inputs(R=160, Hin=1000, H=512, D=1000, seed=9),
+                     ROW_STREAMS)
+        fn = A.row_attention
+    else:
+        x = _to_bf16(_project_inputs(320, 1000, 512, seed=9), (0, 1))
+        fn = A.attention_project
+    x = [t.cuda() for t in x]
+    first, second = fn(*x), fn(*x)
+    torch.cuda.synchronize()
+    for a, b in zip(first if op != "project" else [first],
+                    second if op != "project" else [second]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["shared", "row"])
+def test_bf16_wrappers_refuse_mixed_dtypes_and_gradients_on_card(op):
+    _cuda()
+    if op == "shared":
+        x = [t.cuda() for t in _to_bf16(_inputs("image"), SHARED_STREAMS)]
+        fn, h, bias = A.shared_attention, 0, 6
+    else:
+        x = [t.cuda() for t in _to_bf16(_row_inputs(), ROW_STREAMS)]
+        fn, h, bias = A.row_attention, 0, 5
+    for pos, dt in ((h, torch.float32), (bias, BF16)):
+        bad = list(x)
+        bad[pos] = bad[pos].to(dt)
+        with pytest.raises(TypeError):
+            fn(*bad)
+    x[-1].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fn(*x)

@@ -228,8 +228,7 @@ def test_cli_trains_from_a_jax_checkpoint(data, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--self_critical_after", "0"], ["--n_devices", "2"],
-    ["--trace_steps", "1:2"], ["--packed_path", "shards/*.bin"],
-    ["--compute_dtype", "bfloat16"]])
+    ["--trace_steps", "1:2"], ["--packed_path", "shards/*.bin"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
     with pytest.raises(SystemExit, match="ROADMAP item"):
         p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),

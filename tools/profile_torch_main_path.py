@@ -4,6 +4,10 @@
     python3 tools/profile_torch_main_path.py [batch_images] [MODEL_TYPE]
     python3 tools/profile_torch_main_path.py train [MODEL_TYPE]
 
+Either form takes ``--compute_dtype bfloat16``: the bf16 chain with bf16
+LSTM gate streams (and, in training, bf16 backward residuals), the
+configuration bench.py runs; bf16 matmuls sum in float32.
+
 Runs a test preset of ``chip_smoke.py`` (default Sub_GC_Kar: beam 2, NMS
 0.75, keep 10; any of the eight) at full model width with random weights on
 bench-shaped synthetic images, bucket 128 (1024 for the keep-1000 fan-out
@@ -67,12 +71,21 @@ def _print_profile(prof, wall_ms, n, unit):
                                     row_limit=20, max_name_column_width=60))
 
 
-def profile_train(preset):
+def dtype_overrides(dtype, train=False):
+    """build_configs' model overrides for ``--compute_dtype``."""
+    if dtype == "float32":
+        return {}
+    return dict(compute_dtype=dtype, bf16_lstm_gates=True,
+                **(dict(bf16_residuals=True) if train else {}))
+
+
+def profile_train(preset, dtype):
     from subgc_tpu_torch.data.synthetic import synthetic_train_batch
     from subgc_tpu_torch.train.step import (batch_to_device,
                                             init_train_state,
                                             make_train_step)
-    cfg, tcfg, _ = build_configs(preset, mode="train")
+    cfg, tcfg, _ = build_configs(preset, mode="train",
+                                 model=dtype_overrides(dtype, train=True))
     dev = torch.device("cuda")
     pn, state = init_params_numpy(cfg, seed=0)
     ts = init_train_state(params_from_numpy(pn, dev, requires_grad=True),
@@ -94,10 +107,11 @@ def profile_train(preset):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    print(f"{preset} train step, {tcfg.batch_size} images "
-          f"({5 * tcfg.batch_size} sentences, {cfg.seq_length + 1} steps): "
-          f"unprofiled {ms:.2f} ms/step = {tcfg.batch_size * 1e3 / ms:.1f} "
-          f"images/s; loss {m['loss'].item():.4f}; peak memory "
+    print(f"{preset} train step, {cfg.compute_dtype}, {tcfg.batch_size} "
+          f"images ({5 * tcfg.batch_size} sentences, "
+          f"{cfg.seq_length + 1} steps): unprofiled {ms:.2f} ms/step = "
+          f"{tcfg.batch_size * 1e3 / ms:.1f} images/s; loss "
+          f"{m['loss'].item():.4f}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -113,12 +127,19 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    if len(sys.argv) > 1 and sys.argv[1] == "train":
-        profile_train(sys.argv[2] if len(sys.argv) > 2 else "Sub_GC_Kar")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    argv = sys.argv[1:]
+    dtype = "float32"
+    if "--compute_dtype" in argv:
+        i = argv.index("--compute_dtype")
+        dtype = argv[i + 1]
+        del argv[i:i + 2]
+    if argv and argv[0] == "train":
+        profile_train(argv[1] if len(argv) > 1 else "Sub_GC_Kar", dtype)
         return
-    batch = int(sys.argv[1]) if len(sys.argv) > 1 else cs.BATCH_IMAGES
-    preset = sys.argv[2] if len(sys.argv) > 2 else "Sub_GC_Kar"
-    cfg, ecfg, _ = build_configs(preset)
+    batch = int(argv[0]) if argv else cs.BATCH_IMAGES
+    preset = argv[1] if len(argv) > 1 else "Sub_GC_Kar"
+    cfg, ecfg, _ = build_configs(preset, model=dtype_overrides(dtype))
     if ecfg.sct:
         bucket = cs.SCT_BUCKET
     elif ecfg.gpn_max_subg > cs.BUCKET:
@@ -185,7 +206,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    print(f"{preset}, bucket {bucket}")
+    print(f"{preset}, {cfg.compute_dtype}, bucket {bucket}")
     print(f"unprofiled: {plain_ms:.2f} ms/batch of {batch} images, "
           f"{n_caps} captions/batch = {1e3 * n_caps / plain_ms:.1f} "
           f"captions/s")
