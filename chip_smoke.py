@@ -155,6 +155,48 @@ while the test params are on the card, and 20 after 16:
     times, its loss against the CPU's within rtol 1e-3 and against the
     card's float32 val pass within rtol 1e-2.
 
+Serving and SCST; 21 runs after 19, 22 after 20:
+
+21. the beam kernel alone at a serving dispatch's shapes (8 images x keep
+    10 = 80 rows of 2 beams: per-sub-graph float32, image-shared bf16);
+    then Sub_GC_Kar served over real HTTP on 127.0.0.1: the port's
+    ``save_checkpoint`` writes the weights, ``cli/serve.py::load_registry``
+    loads them (beam 2, NMS 0.75, keep 10, bucket 128, 8 images a
+    dispatch, queue cap 256, default dtype bfloat16), ``warmup`` runs and
+    ``serve`` answers from a thread.  Per dtype (float32: per-sub-graph
+    ``shared_attention``; bf16: image-shared ``subgc_shared_attention_
+    bf16``), on phase 4's first 32 images as requests: (a) 8 single
+    requests, each answer (captions and scores) exactly that of
+    ``make_batched_infer_fn`` on the image alone at the same padding;
+    (b) 32 concurrent clients, one image each: fewer dispatches than
+    requests, every answer exactly its answer alone, the dtype's kernel
+    exactly dispatches x seq_length launches and no other kernel;
+    (d) a request without sub-graphs, through the sampled bank, exactly
+    the direct answer; (e) a ``/caption_stream`` of 16 images in chunks
+    of 4: 16 result lines then ``{"done": true, "count": 16}``; images/s
+    and p50 / p90 latency at 1, 8 and 32 clients (client clock and
+    ``/stats``), dispatches and mean fill, host ms per image of
+    ``json.loads`` and ``to_example``.  (c) the float32 server's first 8
+    answers against ``build_service`` on the CPU: identical keep sets, >=
+    95% identical captions, scores within rtol 1e-4.  (f) a 12-request
+    burst against a service with queue cap 2 at one image a dispatch:
+    only 200 and 429, both, each 429 with ``Retry-After``, the shed count
+    equal to the 429s;
+22. SCST on Sub_GC_Kar at 64 images x 5 sentences: greedy tokens card
+    against CPU on 16 images (>= 95% identical in float32), the sample's
+    logprobs (``row_attention``, no autograd) against the update's
+    recomputation (``attention_teacher``) within atol 1e-4 up to each
+    EOS, the update's loss and gradients card against CPU on 2 images at
+    the card's sample and seeded rewards (random weights earn CIDEr 0,
+    hence zero gradients; phase 14's rule, phase 20's in bf16);
+    then 3 float32 steps and 1 bf16 + bf16 gates step, each with the row
+    kernel of its dtype exactly 2 x seq_length launches and no other, no
+    token after an EOS, a finite loss, timed as sample, host reward and
+    update; then one step of ``adamw``, ``sgd``, ``rmsprop`` and
+    ``adagrad`` at full width on the card against the CPU on the same
+    clipped gradients: params within rtol 1e-5 of the larger of each
+    param before and after the step.
+
 Prints a ``{"kernels": [...]}`` line (both kernels and their bf16
 variants), then ``{"ok": true, "device": ...}`` as the last line.  Needs
 no network and imports no jax.
@@ -1151,13 +1193,22 @@ def _loss_and_grads(cfg, params_np, state_np, batch_np, device):
 def check_train_grads(label, cfg, params_np, state_np, seed):
     """Card against CPU: one backward on TRAIN_CHECK_IMAGES images at full
     width.  Returns the new model states (card, CPU)."""
-    import torch
     from subgc_tpu_torch.data.synthetic import synthetic_train_batch
     batch = synthetic_train_batch(cfg, TRAIN_CHECK_IMAGES, seed=seed)
     t0 = time.perf_counter()
     card = _loss_and_grads(cfg, params_np, state_np, batch, "cuda")
     cpu = _loss_and_grads(cfg, params_np, state_np, batch, "cpu")
-    names = _leaf_names(params_np)
+    compare_grads(label, _leaf_names(params_np), card, cpu, t0)
+    return card[2], cpu[2]
+
+
+def compare_grads(label, names, card, cpu, t0):
+    """The float32 rule, card (loss, grads) against CPU: the loss within
+    rtol 1e-5, every parameter's gradient within 1e-3 of the CPU's
+    relative to its norm (plus 1e-6 of the whole gradient's norm), and
+    non-zero on the card wherever it is live on the CPU; the attention's
+    leaves must have a gradient on the card."""
+    import torch
     if abs(card[0] - cpu[0]) > 1e-5 * abs(cpu[0]):
         fail(f"{label}: loss card {card[0]} cpu {cpu[0]}")
     total = float(torch.sqrt(sum((g.double() ** 2).sum()
@@ -1188,7 +1239,6 @@ def check_train_grads(label, cfg, params_np, state_np, seed):
           f"{card[0]:.6f} / {cpu[0]:.6f}; {n_live} live parameters of "
           f"{len(names)}, worst relative gradient error {worst:.3g} "
           f"({worst_name})")
-    return card[2], cpu[2]
 
 
 def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared,
@@ -1604,56 +1654,666 @@ def run_bf16_train(params_np, state_np):
 
 def check_train_grads_bf16(cfg, params_np, state_np, seed):
     """Card against CPU in the bf16 chain: one backward on
-    TRAIN_CHECK_IMAGES images at full width, the loss within rtol 1e-3.
-    Every live gradient (norm above 1e-6 of the whole gradient's on the
-    CPU) is non-zero on the card; those that hold >= 1e-3 of the whole
-    norm have cosine >= 0.99 against the CPU's.  The smaller live ones are
-    the attention's score leaves (``ctx2att.b``, ``h2att``: ~5e-5 of the
-    norm), sums over every node and sentence that the softmax's shift
-    invariance cancels to ~1e-4 of their terms, so bf16 rounding in either
-    backward decides their direction (cosine 0.968 measured on an H100);
-    each is held within 1e-4 of the whole gradient's norm instead."""
-    import torch
+    TRAIN_CHECK_IMAGES images at full width (``compare_grads_bf16``)."""
     from subgc_tpu_torch.data.synthetic import synthetic_train_batch
     batch = synthetic_train_batch(cfg, TRAIN_CHECK_IMAGES, seed=seed)
     t0 = time.perf_counter()
     card = _loss_and_grads(cfg, params_np, state_np, batch, "cuda")
     cpu = _loss_and_grads(cfg, params_np, state_np, batch, "cpu")
+    compare_grads_bf16("Sub_GC_Kar bf16 gradients", _leaf_names(params_np),
+                       card, cpu, t0)
+
+
+def compare_grads_bf16(label, names, card, cpu, t0):
+    """The bf16 rule, card (loss, grads) against CPU: the loss within rtol
+    1e-3.  Every live gradient (norm above 1e-6 of the whole gradient's
+    on the CPU) is non-zero on the card; those that hold >= 1e-3 of the
+    whole norm have cosine >= 0.99 against the CPU's.  The smaller live
+    ones are the attention's score leaves (``ctx2att.b``, ``h2att``: ~5e-5
+    of the norm), sums over every node and sentence that the softmax's
+    shift invariance cancels to ~1e-4 of their terms, so bf16 rounding in
+    either backward decides their direction (cosine 0.968 measured on an
+    H100); each is held within 1e-4 of the whole gradient's norm
+    instead."""
+    import torch
     if abs(card[0] - cpu[0]) > 1e-3 * abs(cpu[0]):
-        fail(f"bf16 gradients: loss card {card[0]} cpu {cpu[0]}")
-    names = _leaf_names(params_np)
+        fail(f"{label}: loss card {card[0]} cpu {cpu[0]}")
     total = float(torch.sqrt(sum((g.double() ** 2).sum()
                                  for g in cpu[1] if g is not None)))
     worst, worst_name, n_live, small = 1.0, "", 0, {}
     for name, gc, gg in zip(names, cpu[1], card[1]):
         if gc is None or gg is None:
             if (gc is None) != (gg is None):
-                fail(f"bf16 gradients: {name} has a gradient on one side "
-                     f"only")
+                fail(f"{label}: {name} has a gradient on one side only")
             continue
         nc, ng = float(gc.norm()), float(gg.norm())
         if nc <= 1e-6 * total:
             continue
         n_live += 1
         if ng == 0.0:
-            fail(f"bf16 gradients: {name} has a zero gradient on the card")
+            fail(f"{label}: {name} has a zero gradient on the card")
         if nc < 1e-3 * total:
             small[name] = float((gg - gc).norm()) / total
             if small[name] > 1e-4:
-                fail(f"bf16 gradients: {name} card vs cpu |d| "
-                     f"{small[name]:.3g} of the whole gradient's norm")
+                fail(f"{label}: {name} card vs cpu |d| {small[name]:.3g} "
+                     f"of the whole gradient's norm")
             continue
         cos = float((gc.double() * gg.double()).sum()) / (nc * ng)
         if cos < 0.99:
-            fail(f"bf16 gradients: {name} cosine {cos:.4f} card vs cpu")
+            fail(f"{label}: {name} cosine {cos:.4f} card vs cpu")
         if cos < worst:
             worst, worst_name = cos, name
-    print(f"Sub_GC_Kar bf16 gradients card vs cpu "
-          f"({time.perf_counter() - t0:.1f} s): loss {card[0]:.6f} / "
-          f"{cpu[0]:.6f}; {n_live} live parameters of {len(names)}, none "
-          f"lost, lowest cosine {worst:.5f} ({worst_name}); below 1e-3 of "
-          f"the norm, |d| / |whole gradient|: " + ", ".join(
-              f"{k} {v:.3g}" for k, v in small.items()))
+    print(f"{label} card vs cpu ({time.perf_counter() - t0:.1f} s): loss "
+          f"{card[0]:.6f} / {cpu[0]:.6f}; {n_live} live parameters of "
+          f"{len(names)}, none lost, lowest cosine {worst:.5f} "
+          f"({worst_name}); below 1e-3 of the norm, |d| / |whole "
+          f"gradient|: " + ", ".join(f"{k} {v:.3g}"
+                                      for k, v in small.items()))
+
+
+SCST_CHECK_IMAGES = 16    # SCST greedy tokens, card against CPU
+SERVE_BATCH = 8           # images a serving dispatch decodes
+SERVE_IMAGES = 32         # the concurrent burst; phase 4's first images
+SERVE_CLIENTS = (1, 8, 32)
+SERVE_REQUESTS = 32       # requests per concurrency level
+
+
+def request_image(ex):
+    """A phase 4 test example as a ``/caption`` request image: its real
+    nodes and relations (not the dummy ones) and its sub-graphs' nodes."""
+    g, s = ex.graph, ex.subs
+    return {"id": int(ex.info.id),
+            "object_fmap": g.obj_fmap[0, :-1].tolist(),
+            "object_dist": g.obj_dist[0, :-1].tolist(),
+            "rel_ind": g.rel_ind[0, :-1].tolist(),
+            "pred_dist": g.pred_dist[0, :-1].tolist(),
+            "subgraphs": [{"nodes": s.obj_ind[i][s.att_mask[i] > 0].tolist(),
+                           "rels": []} for i in range(len(s.valid))
+                          if s.valid[i]]}
+
+
+def serve_dtype_cfg(cfg, dtype):
+    """The model config a ModelService decodes ``dtype`` with."""
+    return cfg.replace(compute_dtype=dtype,
+                       bf16_lstm_gates=dtype == "bfloat16",
+                       share_att_images=dtype == "bfloat16")
+
+
+def direct_answers(params, state, cfg, ecfg, vocab, imgs, dtype, device):
+    """Each image decoded alone by ``make_batched_infer_fn`` at the serving
+    padding (the image repeated to SERVE_BATCH), with its graph and
+    sub-graphs built here from the request's arrays (or, without
+    sub-graphs, the bank the server samples).  Returns a prediction per
+    image in the server's order (sGPN score, descending)."""
+    import torch
+    from subgc_tpu_torch import decode_sequence, make_batched_infer_fn
+    from subgc_tpu_torch.data.subgraph_sampler import sample_subgraph_bank
+    from subgc_tpu_torch.graph import (SceneGraph, SubgraphSet,
+                                       make_scene_graph, pad_subgraph_set,
+                                       subgraphs_from_masks, to_device)
+    mcfg = serve_dtype_cfg(cfg, dtype)
+    infer = make_batched_infer_fn(mcfg, ecfg)
+    bucket = ecfg.max_subgraph_bucket
+    N, K = mcfg.obj_num, mcfg.rel_num
+    out = []
+    for img in imgs:
+        a = {k: np.asarray(img[k], np.int64 if k == "rel_ind" else "f")
+             for k in ("object_fmap", "object_dist", "rel_ind",
+                       "pred_dist")}
+        graph = make_scene_graph(a["object_fmap"], a["object_dist"],
+                                 a["rel_ind"], a["pred_dist"], N, K)
+        if "subgraphs" in img:
+            om = np.zeros((len(img["subgraphs"]), N - 1))
+            for i, sg in enumerate(img["subgraphs"]):
+                om[i, sg["nodes"]] = 1
+            pm = np.zeros((len(om), K - 1))
+        else:
+            n = len(a["object_fmap"])
+            masks = sample_subgraph_bank(
+                n, a["rel_ind"], [np.arange(min(2, n))] * 5,
+                n_samples=min(bucket - 5, 64))["subgraph_mask_list"][5:]
+            om = np.stack([m[1][:N - 1] for m in masks])
+            pm = np.stack([m[2][:K - 1] for m in masks])
+        subs = pad_subgraph_set(subgraphs_from_masks(om, pm, N, K), bucket)
+        graph = SceneGraph(*[np.concatenate([x] * SERVE_BATCH)
+                             for x in graph])
+        subs = SubgraphSet(*[np.stack([x] * SERVE_BATCH) for x in subs])
+        r = infer(params, state, to_device(graph, device),
+                  to_device(subs, device))
+        r = {k: v[0].cpu().numpy() for k, v in r.items()}
+        n = int(r["keep_valid"].sum())
+        order = np.argsort(-r["scores"][:n], kind="stable")
+        out.append({"image_id": img["id"],
+                    "caption": decode_sequence(vocab, r["seq"][:n][order]),
+                    "subgraph_score": r["scores"][:n][order],
+                    "sorted_subgraph_ind": r["keep_ind"][:n][order]})
+    torch.cuda.synchronize()
+    return out
+
+
+def same_answer(served, ref):
+    return (served["captions"] == ref["caption"]
+            and served["scores"] == ref["subgraph_score"].tolist())
+
+
+def post(url, body, timeout=300):
+    """(status, headers, body bytes) of a POST of ``body`` (bytes)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, body,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.getcode(), resp.headers, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def fire(url, bodies, clients):
+    """``clients`` threads post ``bodies`` (each body once, round-robin
+    over the threads, all starting together); returns (wall seconds, each
+    request's (status, seconds, result body))."""
+    import threading
+    out = [None] * len(bodies)
+    barrier = threading.Barrier(clients)
+
+    def client(c):
+        barrier.wait(timeout=60)
+        for i in range(c, len(bodies), clients):
+            t0 = time.perf_counter()
+            status, _, body = post(url, bodies[i])
+            out[i] = (status, time.perf_counter() - t0, body)
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in ts) or any(o is None for o in out):
+        fail("serving: a client did not finish")
+    return time.perf_counter() - t0, out
+
+
+def percentile(xs, q):
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(len(s) * q))]
+
+
+def run_serving(params_np, state_np, examples, vocab):
+    """Phase 21: serving Sub_GC_Kar over HTTP on the card.  Returns
+    (shared_attention launches of the float32 burst, shared bf16 launches
+    of the bf16 burst, stats)."""
+    import argparse
+    import tempfile
+    import threading
+    import torch
+    from subgc_tpu_torch import (build_configs, config_to_json,
+                                 decode_sequence, params_from_numpy)
+    from subgc_tpu_torch.cli import serve as SV
+    from subgc_tpu_torch.train.checkpoint import save_checkpoint
+    cfg, ecfg, _ = build_configs("Sub_GC_Kar",
+                                 eval=dict(max_subgraph_bucket=BUCKET))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    save_checkpoint(ckpt, params_np, state_np, None,
+                    {"iter": 0, "model_type": "Sub_GC_Kar",
+                     "model_config": config_to_json(cfg), "vocab": vocab},
+                    {})
+    t0 = time.perf_counter()
+    registry = SV.load_registry(argparse.Namespace(
+        model_type="Sub_GC_Kar", checkpoint_path=[f"kar={ckpt}"],
+        bucket=BUCKET, batch_images=SERVE_BATCH, beam_size=None,
+        microbatch_wait_ms=3.0, adaptive_wait=False,
+        compute_dtype="bfloat16", replicas=1, shard_fanout=1,
+        max_queue=256, device="cuda"))
+    svc = registry.models["kar"]
+    svc.warmup()
+    torch.cuda.synchronize()
+    print(f"serving: checkpoint loaded and warmed up in "
+          f"{time.perf_counter() - t0:.2f} s (default dtype "
+          f"{svc.default_dtype}, bucket {BUCKET}, batch {SERVE_BATCH})")
+    httpd = SV.serve(registry, port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    stats = {}
+    try:
+        imgs = [request_image(ex) for ex in examples[:SERVE_IMAGES]]
+        params = params_from_numpy(params_np, "cuda")
+        state = params_from_numpy(state_np, "cuda")
+        launches = {}
+        for dtype in ("float32", "bfloat16"):
+            launches[dtype], stats[dtype] = serve_dtype(
+                url, svc, params, state, cfg, ecfg, vocab, imgs, dtype)
+        # (c) the float32 server against build_service on the CPU
+        t0 = time.perf_counter()
+        cpu_handle = SV.build_service(params_np, state_np,
+                                      serve_dtype_cfg(cfg, "float32"), ecfg,
+                                      vocab, batch_images=SERVE_BATCH,
+                                      device="cpu")
+        cpu_out = cpu_handle.batcher.submit_many(
+            [cpu_handle.to_example(im) for im in imgs[:SERVE_BATCH]])
+        cpu_preds = []
+        for img, o in zip(imgs, cpu_out):
+            n = int(o["keep_valid"].sum())
+            order = np.argsort(-o["scores"][:n], kind="stable")
+            cpu_preds.append({
+                "image_id": img["id"],
+                "caption": decode_sequence(vocab, o["seq"][:n][order]),
+                "subgraph_score": o["scores"][:n][order],
+                "sorted_subgraph_ind": o["keep_ind"][:n][order]})
+        n_same, n_total = compare_card_cpu(
+            stats["float32"].pop("refs")[:SERVE_BATCH], cpu_preds)
+        stats["bfloat16"].pop("refs")
+        if n_same < 0.95 * n_total:
+            fail(f"serving float32: only {n_same}/{n_total} captions agree "
+                 f"between card and cpu")
+        print(f"serving float32 card vs cpu build_service "
+              f"({time.perf_counter() - t0:.1f} s on cpu): {n_same}/"
+              f"{n_total} captions identical, keep sets identical")
+        stats["float32"]["card_vs_cpu"] = [n_same, n_total]
+        stats["shed"] = check_shedding(params, state, cfg, ecfg, vocab)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    return launches["float32"], launches["bfloat16"], stats
+
+
+def serve_dtype(url, svc, params, state, cfg, ecfg, vocab, imgs, dtype):
+    """Phase 21 (a), (b), (d), (e) and the timings for one dtype.  Returns
+    (the burst's launches of the dtype's kernel, stats)."""
+    import torch
+    from subgc_tpu_torch.ops import attention as A
+    refs = direct_answers(params, state, cfg, ecfg, vocab, imgs, dtype,
+                          "cuda")
+    t0 = time.perf_counter()
+    bodies = [json.dumps({"images": [im], "dtype": dtype}).encode()
+              for im in imgs]
+    encode_s = time.perf_counter() - t0
+    # (a) single requests, one after another
+    for img, body, ref in zip(imgs[:8], bodies, refs):
+        status, _, out = post(url + "/caption", body)
+        res = json.loads(out)["results"][0] if status == 200 else out
+        if status != 200 or not same_answer(res, ref):
+            fail(f"serving {dtype}: image {img['id']} alone differs from "
+                 f"make_batched_infer_fn on it ({status})")
+    handle = svc._handle(dtype)
+    # (b) 32 concurrent clients, one image each
+    torch.cuda.synchronize()
+    d0 = handle.batcher.dispatch_count
+    A.reset_launch_counts()
+    _, res = fire(url + "/caption", bodies, len(bodies))
+    torch.cuda.synchronize()
+    dispatches = handle.batcher.dispatch_count - d0
+    counts = {n: getattr(A, n) for n in (
+        "LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES",
+        "ROW_BF16_LAUNCHES", "PROJECT_LAUNCHES")}
+    for (status, _, out), img, ref in zip(res, imgs, refs):
+        if status != 200 or not same_answer(
+                json.loads(out)["results"][0], ref):
+            fail(f"serving {dtype}: image {img['id']} coalesced differs "
+                 f"from its answer alone ({status})")
+    if not dispatches < len(bodies):
+        fail(f"serving {dtype}: {len(bodies)} concurrent requests took "
+             f"{dispatches} dispatches (no coalescing)")
+    kernel = "LAUNCHES" if dtype == "float32" else "SHARED_BF16_LAUNCHES"
+    want = {n: 0 for n in counts}
+    want[kernel] = want["PROJECT_LAUNCHES"] = dispatches * cfg.seq_length
+    if counts != want:
+        fail(f"serving {dtype}: launches {counts}, expected {want} "
+             f"({dispatches} dispatches x {cfg.seq_length} steps)")
+    print(f"serving {dtype}: {len(bodies)} concurrent single-image "
+          f"requests in {dispatches} dispatches, each answer equal to "
+          f"make_batched_infer_fn on its image alone; {kernel} "
+          f"{counts[kernel]} launches")
+    # (d) a request without sub-graphs: the sampled bank
+    bare = {k: v for k, v in imgs[0].items() if k != "subgraphs"}
+    ref = direct_answers(params, state, cfg, ecfg, vocab, [bare], dtype,
+                         "cuda")[0]
+    status, _, out = post(url + "/caption", json.dumps(
+        {"images": [bare], "dtype": dtype}).encode())
+    if status != 200 or not same_answer(json.loads(out)["results"][0], ref):
+        fail(f"serving {dtype}: the sampled-bank answer differs ({status})")
+    # (e) a stream of 16 images in chunks of 4
+    status, headers, out = post(url + "/caption_stream", json.dumps(
+        {"images": imgs[:16], "dtype": dtype, "chunk": 4}).encode())
+    lines = [json.loads(x) for x in out.splitlines()]
+    if (status != 200 or headers["Content-Type"] != "application/x-ndjson"
+            or lines[-1] != {"done": True, "count": 16}
+            or not all(same_answer(r, ref)
+                       for r, ref in zip(lines[:-1], refs[:16]))
+            or len(lines) != 17):
+        fail(f"serving {dtype}: /caption_stream gave {status}, "
+             f"{len(lines)} lines, trailer {lines[-1] if lines else None}")
+    # host cost of a request, apart from the dispatch
+    t0 = time.perf_counter()
+    decoded = [json.loads(b)["images"][0] for b in bodies[:8]]
+    t1 = time.perf_counter()
+    for img in decoded:
+        handle.to_example(img)
+    t2 = time.perf_counter()
+    st = {"bytes_per_image": sum(map(len, bodies)) / len(bodies),
+          "client_json_encode_ms_per_image": 1e3 * encode_s / len(bodies),
+          "json_decode_ms_per_image": 1e3 * (t1 - t0) / 8,
+          "to_example_ms_per_image": 1e3 * (t2 - t1) / 8,
+          "burst_dispatches": dispatches, "levels": {}}
+    # images/s and latency at 1, 8 and 32 concurrent clients
+    for clients in SERVE_CLIENTS:
+        handle.latency.reset()
+        d0, i0 = handle.batcher.dispatch_count, handle.batcher.item_count
+        wall, res = fire(url + "/caption",
+                         [bodies[i % len(bodies)]
+                          for i in range(SERVE_REQUESTS)], clients)
+        if any(r[0] != 200 for r in res):
+            fail(f"serving {dtype}: a request failed at {clients} clients")
+        lat = [r[1] for r in res]
+        dispatches = handle.batcher.dispatch_count - d0
+        srv = svc.stats()[dtype]["latency_ms"]
+        lv = {"images_per_s": SERVE_REQUESTS / wall,
+              "client_p50_ms": 1e3 * percentile(lat, 0.5),
+              "client_p90_ms": 1e3 * percentile(lat, 0.9),
+              "server_p50_ms": srv["p50"], "server_p90_ms": srv["p90"],
+              "dispatches": dispatches,
+              "mean_fill": (handle.batcher.item_count - i0) / dispatches}
+        st["levels"][clients] = lv
+        print(f"serving {dtype}, {clients:2d} clients: "
+              f"{lv['images_per_s']:.1f} images/s; latency p50 / p90 client "
+              f"{lv['client_p50_ms']:.1f} / {lv['client_p90_ms']:.1f} ms, "
+              f"server {lv['server_p50_ms']:.1f} / {lv['server_p90_ms']:.1f}"
+              f" ms; {dispatches} dispatches, mean fill "
+              f"{lv['mean_fill']:.2f} of {SERVE_BATCH}")
+    print(f"serving {dtype}: {st['bytes_per_image'] / 2 ** 20:.2f} MiB of "
+          f"JSON per image; host ms per image: json.loads "
+          f"{st['json_decode_ms_per_image']:.2f}, to_example "
+          f"{st['to_example_ms_per_image']:.2f} (client json.dumps "
+          f"{st['client_json_encode_ms_per_image']:.2f})")
+    st["refs"] = refs
+    return counts[kernel], st
+
+
+def check_shedding(params, state, cfg, ecfg, vocab):
+    """Phase 21 (f): a 12-request burst against max_queue 2 at one image
+    a dispatch (each dispatch held 0.25 s longer, so that the burst must
+    overflow): only 200 and 429, both present, each 429 with Retry-After,
+    the shed count equal to the 429s."""
+    import threading
+    from subgc_tpu_torch.cli import serve as SV
+    handle = SV.build_service(params, state,
+                              serve_dtype_cfg(cfg, "bfloat16"), ecfg, vocab,
+                              batch_images=1, max_queue=2, device="cuda")
+    run = handle.batcher._run
+    handle.batcher._run = lambda xs: (time.sleep(0.25), run(xs))[1]
+    rng = np.random.RandomState(70)
+    n, k = 4, 3
+    body = json.dumps({"images": [{
+        "object_fmap": rng.rand(n, cfg.att_feat_size).tolist(),
+        "object_dist": rng.rand(n, cfg.num_obj_classes).tolist(),
+        "rel_ind": rng.randint(0, n, (k, 2)).tolist(),
+        "pred_dist": rng.rand(k, cfg.num_rel_classes).tolist(),
+        "subgraphs": [{"nodes": [0, 1], "rels": [0]}]}]}).encode()
+    httpd = SV.serve(handle, port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if post(url + "/caption", body)[0] != 200:
+            fail("serving (f): the warm-up request failed")
+        codes, retry = [], []
+        lock = threading.Lock()
+
+        def one(endpoint):
+            status, headers, _ = post(url + endpoint, body)
+            with lock:
+                codes.append(status)
+                if status == 429:
+                    retry.append(headers.get("Retry-After"))
+
+        ts = [threading.Thread(target=one, args=(ep,))
+              for ep in ["/caption"] * 8 + ["/caption_stream"] * 4]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    if (len(codes) != 12 or set(codes) != {200, 429}
+            or len(retry) != codes.count(429)
+            or not all(r == "1" for r in retry)
+            or handle.batcher.shed_count != codes.count(429)):
+        fail(f"serving (f): burst codes {sorted(codes)}, Retry-After "
+             f"{retry}, shed count {handle.batcher.shed_count}")
+    print(f"serving (f): 12-request burst at max_queue 2: "
+          f"{codes.count(200)} served, {codes.count(429)} shed with 429 + "
+          f"Retry-After")
+    return {"served": codes.count(200), "shed": codes.count(429)}
+
+
+def _scst_loss_and_grads(cfg, params_np, state_np, batch_np, seq, rewards,
+                         device):
+    """The SCST loss at ``seq`` and ``rewards`` on ``device`` and its
+    gradient per parameter leaf, on the host."""
+    import torch
+    from subgc_tpu_torch import params_from_numpy
+    from subgc_tpu_torch.train.optim import tree_leaves
+    from subgc_tpu_torch.train.scst import scst_loss
+    from subgc_tpu_torch.train.step import batch_to_device
+    p = params_from_numpy(params_np, device, requires_grad=True)
+    b = batch_to_device(batch_np, device)
+    dev = b.img_ix.device
+    loss = scst_loss(p, params_from_numpy(state_np, device), b,
+                     torch.from_numpy(seq).to(dev),
+                     torch.from_numpy(rewards).to(dev), cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+    return loss.item(), [None if g is None else g.cpu() for g in grads]
+
+
+def image_refs(batch_np):
+    """Each sentence's references: its image's caption rows."""
+    labels = batch_np.labels[:, 1:-1]
+    return [labels[batch_np.img_ix == i] for i in batch_np.img_ix]
+
+
+def check_scst(label, cfg, params_np, state_np, vocab, seed, bf16):
+    """Phase 22's checks before the timed steps, on SCST_CHECK_IMAGES
+    images for the tokens and TRAIN_CHECK_IMAGES for the gradients:
+    greedy tokens card against CPU (>= 95% identical in float32, printed
+    in bf16); the sample's logprobs against their recomputation under
+    autograd on the card up to each row's first EOS (atol 1e-4 in
+    float32; printed in bf16, where the no-grad kernel's float32 math and
+    the autograd path's bf16 roundings differ by design); the update's
+    loss and gradients card against CPU at the card's sample and rewards
+    (phase 14's rule, phase 20's in bf16)."""
+    import torch
+    from subgc_tpu_torch import params_from_numpy
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.train.scst import (compute_rewards, make_sample_fn,
+                                            sample_logprobs)
+    from subgc_tpu_torch.train.step import batch_to_device
+    sample_fn = make_sample_fn(cfg)
+    batch_np = synthetic_train_batch(cfg, SCST_CHECK_IMAGES, seed=seed)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        p = params_from_numpy(params_np, dev, requires_grad=dev == "cuda")
+        st = params_from_numpy(state_np, dev)
+        b = batch_to_device(batch_np, dev)
+        out[dev] = sample_fn(p, st, b, g)
+        if dev == "cuda":
+            again = sample_logprobs(p, st, b, out[dev][1], cfg)
+            tok = out[dev][1].cpu().numpy()
+            ended = np.cumsum(tok == 0, axis=1) > 0
+            live = np.concatenate([np.ones_like(ended[:, :1]),
+                                   ~ended[:, :-1]], 1)
+            lp_err = float(np.abs(again.detach().cpu().numpy()
+                                  - out[dev][2].cpu().numpy())[live].max())
+    greedy = [out[d][0].cpu().numpy() for d in ("cuda", "cpu")]
+    agree = float((greedy[0] == greedy[1]).mean())
+    rows = float((greedy[0] == greedy[1]).all(1).mean())
+    if not bf16 and lp_err > 1e-4:
+        fail(f"{label}: sample logprobs against the update's "
+             f"recomputation |d| {lp_err:.3g}")
+    if not bf16 and agree < 0.95:
+        fail(f"{label}: greedy tokens card vs cpu agree on {agree:.3f}")
+    print(f"{label}: greedy tokens card vs cpu {agree:.4f} identical (rows "
+          f"{rows:.4f}); sample logprobs vs the update's recomputation max "
+          f"|d| {lp_err:.3g}")
+    small = synthetic_train_batch(cfg, TRAIN_CHECK_IMAGES, seed=seed + 1)
+    b = batch_to_device(small, "cuda")
+    greedy, sample, _ = sample_fn(
+        params_from_numpy(params_np, "cuda"),
+        params_from_numpy(state_np, "cuda"), b,
+        torch.Generator(device="cuda").manual_seed(seed))
+    seq = sample.cpu().numpy()
+    cider = compute_rewards(greedy.cpu().numpy(), seq, image_refs(small),
+                            vocab)
+    # random weights over the full vocabulary share no n-gram with the
+    # references, so every CIDEr reward is 0 and so would every gradient
+    # be: the gradients are held at seeded rewards instead
+    rewards = np.random.RandomState(seed).randn(len(seq)).astype("f")
+    t0 = time.perf_counter()
+    card, cpu = (_scst_loss_and_grads(cfg, params_np, state_np, small, seq,
+                                      rewards, d) for d in ("cuda", "cpu"))
+    (compare_grads_bf16 if bf16 else compare_grads)(
+        f"{label} update gradients", _leaf_names(params_np), card, cpu, t0)
+    return {"greedy_agreement": agree, "greedy_rows_identical": rows,
+            "sample_logprob_err": lp_err, "loss_card": card[0],
+            "loss_cpu": cpu[0], "cider_rewards_nonzero": int((cider != 0)
+                                                              .sum())}
+
+
+def run_scst_steps(label, cfg, params_np, state_np, vocab, n_steps, seed):
+    """SCST steps at the preset's batch, each timed as sample (the no-grad
+    dispatch and the tokens to the host), host reward and update; per
+    step the row kernel of the compute dtype launches exactly 2 x
+    seq_length times, no other kernel launches, and the loss is finite.
+    Returns (row kernel launches, stats)."""
+    import torch
+    from subgc_tpu_torch import build_configs, params_from_numpy
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.ops import attention as A
+    from subgc_tpu_torch.train.scst import (compute_rewards, make_sample_fn,
+                                            make_scst_update_fn)
+    from subgc_tpu_torch.train.step import batch_to_device, init_train_state
+    _, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
+    dev = torch.device("cuda")
+    ts = init_train_state(params_from_numpy(params_np, dev, True),
+                          params_from_numpy(state_np, dev), tcfg,
+                          step=tcfg.warmup_n + 1)
+    batch_np = synthetic_train_batch(cfg, tcfg.batch_size, seed=seed)
+    batch = batch_to_device(batch_np, dev)
+    refs = image_refs(batch_np)
+    sample_fn, update_fn = make_sample_fn(cfg), make_scst_update_fn(cfg,
+                                                                    tcfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kernel = ("ROW_BF16_LAUNCHES" if cfg.compute_dtype == "bfloat16"
+              else "ROW_LAUNCHES")
+    names = ("LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES",
+             "ROW_BF16_LAUNCHES", "PROJECT_LAUNCHES")
+    times, total = [], 0
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        greedy, sample, _ = sample_fn(ts.params, ts.model_state, batch, gen)
+        g_np, s_np = greedy.cpu().numpy(), sample.cpu().numpy()
+        t1 = time.perf_counter()
+        rewards = compute_rewards(g_np, s_np, refs, vocab)
+        t2 = time.perf_counter()
+        ts, loss = update_fn(ts, batch, sample,
+                             torch.from_numpy(rewards).to(sample.device), 0)
+        loss = loss.item()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = {n: getattr(A, n) for n in names}
+        want = {n: 0 for n in names}
+        want[kernel] = want["PROJECT_LAUNCHES"] = 2 * cfg.seq_length
+        if counts != want:
+            fail(f"{label} step {i}: launches {counts}, expected {want}")
+        ended = np.cumsum(s_np == 0, axis=1) > 0
+        if (s_np[ended] != 0).any() or not np.isfinite(loss):
+            fail(f"{label} step {i}: tokens after an EOS, or loss {loss}")
+        total += counts[kernel]
+        times.append((1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2)))
+        print(f"{label} step {i}: loss {loss:.5f}, mean reward "
+              f"{rewards.mean():.5f} ({int((rewards != 0).sum())} of "
+              f"{len(rewards)} non-zero); sample {times[-1][0]:.2f} ms, host "
+              f"reward {times[-1][1]:.2f} ms, update {times[-1][2]:.2f} ms; "
+              f"{kernel} {counts[kernel]}")
+    # the first step pays its first-use costs
+    steady = times[1:] or times
+    med = [statistics.median(t[j] for t in steady) for j in range(3)]
+    stats = {"images": tcfg.batch_size, "sample_ms": med[0],
+             "reward_ms": med[1], "update_ms": med[2],
+             "step_ms": sum(med)}
+    print(f"{label}: {stats['step_ms']:.2f} ms per step at "
+          f"{tcfg.batch_size} images x 5 sentences = sample "
+          f"{med[0]:.2f} + host reward {med[1]:.2f} + update {med[2]:.2f}")
+    return total, stats
+
+
+def check_optimizers(params_np):
+    """Phase 22: one step of adamw, sgd, rmsprop and adagrad at full width
+    on the card against the CPU, on the same clipped gradients: params
+    within rtol 1e-5 of the larger of each param before and after the
+    step."""
+    import torch
+    from subgc_tpu_torch import TrainConfig, params_from_numpy
+    from subgc_tpu_torch.train import optim as O
+    rng = np.random.RandomState(80)
+    leaves = O.tree_leaves(params_np)
+    grads = [(rng.randn(*np.shape(x)) * 1e-2).astype("f") for x in leaves]
+    norm = float(np.sqrt(sum(float((g.astype("d") ** 2).sum())
+                             for g in grads)))
+    out = {}
+    for kind in ("adamw", "sgd", "rmsprop", "adagrad"):
+        tcfg = TrainConfig(optim=kind)
+        res = []
+        for dev in ("cuda", "cpu"):
+            p = params_from_numpy(params_np, dev)
+            st = O.init_opt_state(p, tcfg)
+            O.apply_update(p, [torch.from_numpy(g).to(x.device) for g, x in
+                               zip(grads, O.tree_leaves(p))], st, 5e-4, tcfg)
+            res.append([t.cpu() for t in O.tree_leaves(p)])
+        worst = 0.0
+        for a, b, x in zip(res[0], res[1], leaves):
+            # relative to the larger of the param before and after: a step
+            # that cancels a param leaves a small value that carries its
+            # operands' rounding
+            scale = torch.maximum(b.abs(), torch.from_numpy(np.abs(x)))
+            rel = (a - b).abs() / scale.clamp_min(1e-30)
+            if (rel > 1e-5).any():
+                fail(f"optimizer {kind}: card vs cpu |d| "
+                     f"{rel.max().item():.3g} of the param's scale, beyond "
+                     f"rtol 1e-5")
+            worst = max(worst, rel.max().item())
+        out[kind] = worst
+        print(f"optimizer {kind}: one step at full width (gradient norm "
+              f"{norm:.1f}, clip at 10), card vs cpu worst relative param "
+              f"error {worst:.3g}")
+    return out
+
+
+def run_scst(params_np, state_np):
+    """Phase 22: SCST on Sub_GC_Kar at 64 images x 5 sentences, 3 steps in
+    float32 and 1 in bf16 + bf16 gates, and the four other optimizers.
+    Returns (row launches, row bf16 launches, stats)."""
+    from subgc_tpu_torch import build_configs
+    cfg, _, _ = build_configs("Sub_GC_Kar", mode="train")
+    vocab = {str(i): f"w{i}" for i in range(1, cfg.vocab_size + 1)}
+    stats = {"float32": check_scst("SCST float32", cfg, params_np, state_np,
+                                   vocab, seed=90, bf16=False)}
+    row, stats["float32"]["steps"] = run_scst_steps(
+        "SCST float32", cfg, params_np, state_np, vocab, 3, seed=91)
+    bcfg, _, _ = build_configs("Sub_GC_Kar", mode="train", model=BF16_MODEL)
+    stats["bfloat16"] = check_scst("SCST bf16", bcfg, params_np, state_np,
+                                   vocab, seed=92, bf16=True)
+    row_bf16, stats["bfloat16"]["steps"] = run_scst_steps(
+        "SCST bf16", bcfg, params_np, state_np, vocab, 1, seed=93)
+    stats["optimizers_worst_rel_err"] = check_optimizers(params_np)
+    return row, row_bf16, stats
 
 
 def main():
@@ -1796,6 +2456,20 @@ def main():
     bf16_grd_launches = run_bf16_grounding(params, cpu_params, state,
                                            examples, vocab)
 
+    # ---- 21. serving over HTTP: both kernels alone at its dispatch's
+    # shapes (8 images x keep 10 rows of 2 beams), then the server
+    serve_rows = SERVE_BATCH * keep
+    serve_f32_check = check_attention(params, "subgraph", serve_rows,
+                                      serve_rows, seed=62)
+    serve_bf16_check = check_attention(params, "image", serve_rows,
+                                       SERVE_BATCH, seed=63, bf16=True)
+    checks.append(serve_f32_check)
+    serve_f32, serve_bf16, serve_stats = run_serving(params_np, state,
+                                                     examples, vocab)
+    print(json.dumps({"serving": serve_stats,
+                      "serve_shared_attention": serve_f32_check,
+                      "serve_shared_attention_bf16": serve_bf16_check}))
+
     # ---- 14-16. training; first both kernels at the val passes' shapes
     val_row_check = check_row_attention(params, S_val, seed=40)
     val_shared_check = check_attention(params, "image", S_val,
@@ -1809,6 +2483,9 @@ def main():
                       "val_shared_attention": val_shared_check}))
     # ---- 20. bf16 training
     bf16_val_row, bf16_train = run_bf16_train(params_np, state)
+    # ---- 22. SCST and the four other optimizers
+    scst_row, scst_row_bf16, scst_stats = run_scst(params_np, state)
+    print(json.dumps({"scst": scst_stats}))
     print(json.dumps({"bf16": {
         "test": bf16_test, "train": bf16_train,
         "shared_attention_bf16": dict(zip(
@@ -1823,7 +2500,8 @@ def main():
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
         "launches": (launches + fan_launches + fullgc_launches
-                     + ctl_launches + sup_launches + val_shared),
+                     + ctl_launches + sup_launches + val_shared
+                     + serve_f32),
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_check["ms"],
         "plain_ms": main_check["plain_ms"],
@@ -1835,7 +2513,7 @@ def main():
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:29",
-        "launches": grd_launches + val_row,
+        "launches": grd_launches + val_row + scst_row,
         "max_abs_err": max(c["max_abs_err"] for c in row_checks),
         "ms": row_checks[0]["ms"],
         "plain_ms": row_checks[0]["plain_ms"],
@@ -1847,8 +2525,9 @@ def main():
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
-        "launches": bf16_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in bf16_shared),
+        "launches": bf16_launches + serve_bf16,
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in bf16_shared + [serve_bf16_check]),
         "ms": bf16_shared[0]["ms"],
         "plain_ms": bf16_shared[0]["plain_ms"],
         "bound_ms": bf16_shared[0]["bound_ms"],
@@ -1859,7 +2538,7 @@ def main():
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:29",
-        "launches": bf16_grd_launches + bf16_val_row,
+        "launches": bf16_grd_launches + bf16_val_row + scst_row_bf16,
         "max_abs_err": max(c["max_abs_err"] for c in bf16_row),
         "ms": bf16_row[0]["ms"],
         "plain_ms": bf16_row[0]["plain_ms"],

@@ -7,9 +7,14 @@ the loop mirrors `train.py:54-240`: warmup/decay LR, scheduled sampling
 (the hoisted step while ss_prob is 0), the val loss and a checkpoint every
 ``save_checkpoint_every`` iterations and at the end, and an emergency
 ``_crash`` checkpoint on failure.  ``--start_from`` takes a checkpoint of
-either package (``model.npz`` + ``infos.json``; the port's Adam moments
-when its ``optimizer.npz`` matches), with ``--word_mapping`` for a vocab
-remap.  Batches load synchronously.
+either package (``model.npz`` + ``infos.json``; the port's optimizer state
+when its ``optimizer.npz`` matches, and an error when another ``--optim``
+wrote it), with ``--word_mapping`` for a vocab remap.  Batches load
+synchronously.  ``--optim`` picks any of the JAX package's five optimizers
+(``adam``, the presets', ``adamw``, ``sgd``, ``rmsprop``, ``adagrad``).
+``--self_critical_after E`` trains with SCST (``train/scst.py``) from
+epoch E on: each sentence's reward is its sample's CIDEr against its
+image's GT captions minus its greedy baseline's.
 
 ``--compute_dtype bfloat16`` (with ``--bf16_lstm_gates`` and
 ``--bf16_residuals``) trains in the bf16 chain over float32 parameters and
@@ -17,8 +22,7 @@ Adam state, bf16 matmuls summing in float32; the checkpoint's
 ``model_config`` records it, so ``cli/test.py`` decodes it in bf16.
 
 Flags whose code the port does not have yet stop with a message naming the
-ROADMAP item: ``--self_critical_after`` (SCST), ``--n_devices`` > 1,
-``--trace_steps`` and ``--packed_path``.
+ROADMAP item: ``--n_devices`` > 1, ``--trace_steps`` and ``--packed_path``.
 """
 from __future__ import annotations
 
@@ -49,7 +53,11 @@ def parse_args(argv=None):
                    help="1: additionally keep an iteration-suffixed copy at "
                         "every checkpoint (reference opts.py:131)")
     p.add_argument("--self_critical_after", type=int, default=-1,
-                   help="SCST is not ported yet (ROADMAP item 11)")
+                   help="switch to self-critical training (SCST) from this "
+                        "epoch on; -1 = never")
+    p.add_argument("--optim", type=str, default=None,
+                   choices=["adam", "adamw", "sgd", "rmsprop", "adagrad"],
+                   help="optimizer (default: the preset's, adam)")
     p.add_argument("--max_epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--learning_rate", type=float, default=None)
@@ -99,8 +107,6 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
     refused = [
-        (args.self_critical_after >= 0, "--self_critical_after",
-         "11 (SCST, train/scst.py)"),
         (args.n_devices is not None and args.n_devices > 1, "--n_devices",
          "13 (parallelism)"),
         (args.trace_steps, "--trace_steps", "14 (profiling)"),
@@ -115,7 +121,8 @@ def _refuse_unported(args):
 def _overrides(args):
     overrides = {"train": {}, "data": {}, "model": {}}
     for k in ["max_epochs", "batch_size", "learning_rate",
-              "save_checkpoint_every", "val_images_use", "losses_log_every"]:
+              "save_checkpoint_every", "val_images_use", "losses_log_every",
+              "optim"]:
         if getattr(args, k) is not None:
             overrides["train"][k] = getattr(args, k)
     for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir",
@@ -147,7 +154,7 @@ def main(argv=None):
     from ..io.glove import class_embeddings
     from ..models.params import init_params_numpy, params_from_numpy
     from ..train import checkpoint as C
-    from ..train.optim import AdamState, ss_prob
+    from ..train.optim import OptState, ss_prob
     from ..train.step import (batch_to_device, init_train_state,
                               make_train_step, make_val_step)
     from ..utils.logging import MetricsLogger
@@ -175,7 +182,7 @@ def main(argv=None):
     iteration, epoch = 0, 0
     histories = {"loss_history": {}, "lr_history": {}, "ss_prob_history": {},
                  "val_loss_history": {}}
-    moments = None
+    opt_np = None
 
     if (args.auto_resume and not args.start_from
             and os.path.exists(os.path.join(args.checkpoint_path,
@@ -183,8 +190,8 @@ def main(argv=None):
         args.start_from = args.checkpoint_path
         print(f"auto-resuming from {args.checkpoint_path}")
     if args.start_from:
-        p2, s2, moments, infos, histories2 = C.load_checkpoint(
-            args.start_from, params_template=params_np)
+        p2, s2, opt_np, infos, histories2 = C.load_checkpoint(
+            args.start_from, params_template=params_np, optim=tcfg.optim)
         wm = None
         if args.word_mapping:
             wm = np.load(args.word_mapping, allow_pickle=True,
@@ -198,11 +205,10 @@ def main(argv=None):
     ts = init_train_state(params_from_numpy(params_np, dev, True),
                           params_from_numpy(state_np, dev), tcfg,
                           step=iteration)
-    if moments is not None:
-        count, mu, nu = moments
-        ts = ts._replace(opt_state=AdamState(
-            count=count, mu=params_from_numpy(mu, dev),
-            nu=params_from_numpy(nu, dev)))
+    if opt_np is not None:
+        ts = ts._replace(opt_state=OptState(
+            kind=opt_np.kind, count=opt_np.count,
+            moments=params_from_numpy(opt_np.moments, dev)))
 
     # the ss-inactive step hoists the word-embedding gate products out of
     # the step loop; a run that never reaches scheduled sampling uses only
@@ -210,6 +216,11 @@ def main(argv=None):
     step_ss = make_train_step(mcfg, tcfg)
     step_hoisted = make_train_step(mcfg, tcfg, ss_active=False)
     val_step = make_val_step(mcfg)
+    scst_fns = None
+    if args.self_critical_after >= 0:
+        from ..train.scst import (make_sample_fn, make_scst_update_fn,
+                                  scst_train_step)
+        scst_fns = (make_sample_fn(mcfg), make_scst_update_fn(mcfg, tcfg))
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     os.makedirs(args.checkpoint_path, exist_ok=True)
     infos_base = {
@@ -236,10 +247,26 @@ def main(argv=None):
     try:
         while True:
             sp = ss_prob(epoch, tcfg)
-            batch, _, wrapped = loader.get_batch("train")
-            step = step_hoisted if sp == 0.0 else step_ss
-            ts, metrics = step(ts, batch_to_device(batch, dev), generator,
-                               epoch, sp)
+            batch, infos_b, wrapped = loader.get_batch("train")
+            if scst_fns is not None and epoch >= args.self_critical_after:
+                # each sentence is scored against its image's GT captions
+                gts_tokens = [loader.ds.captions_for(info.ix)
+                              for info in infos_b
+                              for _ in range(tcfg.seq_per_img)]
+                ts, scst_loss, mean_reward = scst_train_step(
+                    ts, batch_to_device(batch, dev), gts_tokens,
+                    loader.vocab, *scst_fns, generator, epoch)
+                zero = torch.zeros((), device=dev)
+                metrics = {"loss": torch.tensor(scst_loss),
+                           "lang_loss": torch.tensor(scst_loss),
+                           "gpn_loss": zero, "lr": zero, "grad_norm": zero}
+                if iteration % 5 == 0:
+                    print(f"scst iter {iteration}: loss {scst_loss:.4f} "
+                          f"mean reward {mean_reward:.4f}")
+            else:
+                step = step_hoisted if sp == 0.0 else step_ss
+                ts, metrics = step(ts, batch_to_device(batch, dev),
+                                   generator, epoch, sp)
             iteration += 1
             n_steps += 1
 

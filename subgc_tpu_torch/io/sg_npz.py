@@ -1,4 +1,4 @@
-"""Scene-graph + sub-graph-mask npz readers in the reference's on-disk format.
+"""Scene-graph + sub-graph-mask npz IO in the reference's on-disk format.
 
 Schemas (reference `misc/surgery.py:86-95`, `dataloaders/dataloader.py`):
 
@@ -21,6 +21,12 @@ def read_feat_npz(path: str) -> dict:
     """np.load(...)['feat'].tolist() like HybridLoader (dataloader.py:26)."""
     with np.load(path, allow_pickle=True, encoding="latin1") as z:
         return z["feat"].tolist()
+
+
+def write_feat_npz(path: str, feat: dict) -> None:
+    """Write ``feat`` under the single pickled key ``feat``, as
+    :func:`read_feat_npz` reads it."""
+    np.savez(path, feat=np.asarray(feat, dtype=object))
 
 
 class SGDir:

@@ -65,6 +65,7 @@ launches count in :data:`SHARED_BF16_LAUNCHES` and
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -73,7 +74,9 @@ from . import _build
 
 # kernel launches through the wrappers (a test or a run resets them):
 # shared_attention and row_attention in float32 and in bfloat16, and the
-# projection kernel, which every one of the three wrappers launches
+# projection kernel, which every one of the three wrappers launches.  A
+# server launches from several threads at once, so every change to them
+# holds _LOCK, and the first lookup of a kernel entry in _FNS holds _FN_LOCK
 LAUNCHES = 0
 ROW_LAUNCHES = 0
 SHARED_BF16_LAUNCHES = 0
@@ -89,6 +92,8 @@ MAX_SPLITS = 8
 MIN_SLICES_PER_SPLIT = 4
 
 _FNS = {}
+_LOCK = threading.Lock()
+_FN_LOCK = threading.Lock()
 F32, BF16 = torch.float32, torch.bfloat16
 
 
@@ -162,18 +167,33 @@ def reset_launch_counts():
     """Set every launch counter of this module to 0."""
     global LAUNCHES, ROW_LAUNCHES, SHARED_BF16_LAUNCHES, ROW_BF16_LAUNCHES, \
         PROJECT_LAUNCHES
-    LAUNCHES = ROW_LAUNCHES = SHARED_BF16_LAUNCHES = ROW_BF16_LAUNCHES = 0
-    PROJECT_LAUNCHES = 0
+    with _LOCK:
+        LAUNCHES = ROW_LAUNCHES = SHARED_BF16_LAUNCHES = 0
+        ROW_BF16_LAUNCHES = PROJECT_LAUNCHES = 0
+
+
+def count_launch(counter=None):
+    """Add one to :data:`PROJECT_LAUNCHES` (every wrapper launches the
+    projection) and to the launch counter named ``counter``, if any, under
+    the lock: concurrent ``+= 1`` from several threads can lose counts."""
+    global PROJECT_LAUNCHES
+    with _LOCK:
+        if counter is not None:
+            globals()[counter] += 1
+        PROJECT_LAUNCHES += 1
 
 
 def _fn(name, n_ptr, n_int):
-    if name not in _FNS:
-        fn = getattr(_build.load("attention"), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return _FNS[name]
+    """The ctypes entry ``name`` of the attention library, built and loaded
+    on first use (once, however many threads ask at the same time)."""
+    with _FN_LOCK:
+        if name not in _FNS:
+            fn = getattr(_build.load("attention"), name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _FNS[name] = fn
+        return _FNS[name]
 
 
 def storage_dtype(op, streams, f32s):
@@ -266,7 +286,6 @@ def _check_project(h, wh, bh):
 
 def run_attention_project(h, wh, bh, plan):
     """The projection kernel and its split sum on CUDA tensors, at ``plan``."""
-    global PROJECT_LAUNCHES
     _refuse_grad("attention_project", (h, wh, bh))
     Q, Hin, H = _check_project(h, wh, bh)
     part = project_scratch(plan, Q, H, h.device)
@@ -277,7 +296,7 @@ def run_attention_project(h, wh, bh, plan):
               fn(h.data_ptr(), wh.data_ptr(), bh.data_ptr(), part.data_ptr(),
                  ah.data_ptr(), Q, Hin, H, plan.bm, plan.bn, plan.splits,
                  stream))
-    PROJECT_LAUNCHES += 1
+    count_launch()
     return ah
 
 
@@ -348,7 +367,6 @@ def _check(h, p_att, att, mask, idx, wh, bh, v, bv):
 def run_shared_attention(args, plan):
     """Both kernels of :func:`shared_attention` on CUDA tensors, at
     ``plan``."""
-    global LAUNCHES, SHARED_BF16_LAUNCHES, PROJECT_LAUNCHES
     _refuse_grad("shared_attention", args)
     S, B, R, G, N, H, D = _check(*args)
     if plan.rows_per_block * B > MAX_QUERIES_PER_BLOCK:
@@ -366,11 +384,7 @@ def run_shared_attention(args, plan):
               fn(*(t.data_ptr() for t in args), part.data_ptr(),
                  out.data_ptr(), w.data_ptr(), S, B, R, G, N, H, D, plan.bm,
                  plan.bn, plan.splits, plan.rows_per_block, stream))
-    if bf16:
-        SHARED_BF16_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    PROJECT_LAUNCHES += 1
+    count_launch("SHARED_BF16_LAUNCHES" if bf16 else "LAUNCHES")
     return out, w
 
 
@@ -439,7 +453,6 @@ def _check_rows(h, p_att, att, mask, wh, bh, v, bv):
 def run_row_attention(args, plan):
     """Both kernels of :func:`row_attention` on CUDA tensors, at ``plan``
     (one row per attention block)."""
-    global ROW_LAUNCHES, ROW_BF16_LAUNCHES, PROJECT_LAUNCHES
     _refuse_grad("row_attention", args)
     R, Hin, N, H, D = _check_rows(*args)
     dev = args[0].device
@@ -453,11 +466,7 @@ def run_row_attention(args, plan):
               fn(*(t.data_ptr() for t in args), part.data_ptr(),
                  out.data_ptr(), w.data_ptr(), R, Hin, N, H, D, plan.bm,
                  plan.bn, plan.splits, stream))
-    if bf16:
-        ROW_BF16_LAUNCHES += 1
-    else:
-        ROW_LAUNCHES += 1
-    PROJECT_LAUNCHES += 1
+    count_launch("ROW_BF16_LAUNCHES" if bf16 else "ROW_LAUNCHES")
     return out, w
 
 

@@ -6,14 +6,19 @@ One checkpoint directory holds:
 * ``model.npz``      — ``{"params", "state"}`` in the JAX package's
   ``///`` path format (``models/params.py::save_model_npz``), so that either
   package reads what the other writes;
-* ``optimizer.npz``  — the port's Adam state under named keys: ``count``
-  and the moments as ``mu///<param path>`` / ``nu///<param path>``;
+* ``optimizer.npz``  — the port's optimizer state under named keys: its
+  ``kind`` (``adam``, ``adamw``, ``sgd``, ``rmsprop`` or ``adagrad``),
+  ``count`` and each named moment as ``<moment>///<param path>`` (Adam's
+  ``mu`` / ``nu``, sgd's ``trace``, rmsprop's ``nu``, adagrad's
+  ``sum_of_squares``); a file without ``kind`` is an Adam file of an
+  earlier version of the port;
 * ``infos.json``     — iteration/epoch counters, configs, vocab;
 * ``histories.json`` — loss/lr/ss-prob/val histories.
 
 An ``optimizer.npz`` whose keys or shapes do not match the current params
 (a JAX checkpoint's optax leaves, say) is not loaded: the moments start
-from zero with a warning, as the JAX package does on a layout change.
+afresh with a warning, as the JAX package does on a layout change.  One
+written by another optimizer than the one resuming raises.
 """
 from __future__ import annotations
 
@@ -24,19 +29,21 @@ import numpy as np
 
 from ..models.params import (_flatten, _unflatten, load_model_npz,
                              params_to_numpy, save_model_npz)
+from .optim import MOMENTS, OptState
 
 
 def save_checkpoint(ckpt_dir: str, params, state, opt_state, infos: dict,
                     histories: dict, suffix: str = "") -> None:
     """Write a full training checkpoint (reference train.py:36-52);
-    ``opt_state`` is an ``optim.AdamState`` or None."""
+    ``opt_state`` is an ``optim.OptState`` or None."""
     os.makedirs(ckpt_dir, exist_ok=True)
     save_model_npz(os.path.join(ckpt_dir, f"model{suffix}.npz"),
                    {"params": params, "state": state})
     if opt_state is not None:
-        flat = _flatten({"mu": params_to_numpy(opt_state.mu),
-                         "nu": params_to_numpy(opt_state.nu)})
+        flat = _flatten({k: params_to_numpy(v)
+                         for k, v in opt_state.moments.items()})
         np.savez(os.path.join(ckpt_dir, f"optimizer{suffix}.npz"),
+                 kind=np.asarray(opt_state.kind),
                  count=np.asarray(opt_state.count), **flat)
     with open(os.path.join(ckpt_dir, f"infos{suffix}.json"), "w") as f:
         json.dump(infos, f)
@@ -44,32 +51,41 @@ def save_checkpoint(ckpt_dir: str, params, state, opt_state, infos: dict,
         json.dump(histories, f)
 
 
-def _load_moments(path: str, params_np):
-    """(count, mu, nu) numpy trees from the port's ``optimizer.npz``, or
-    None with a warning when its layout does not match ``params_np``."""
+def _load_opt_state(path: str, params_np, optim: str):
+    """The port's ``optimizer.npz`` as an ``OptState`` of numpy trees, or
+    None with a warning when its layout does not match ``params_np``.
+    Raises when it was written by another optimizer than ``optim``."""
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
-    want = _flatten({"mu": params_np, "nu": params_np})
     count = flat.pop("count", None)
+    kind = str(flat.pop("kind", "adam"))
+    if kind != optim:
+        raise ValueError(f"{path} holds {kind!r} optimizer state; resuming "
+                         f"under optim={optim!r} would start its moments "
+                         f"from another optimizer's (pass the same "
+                         f"--optim, or start without the checkpoint's "
+                         f"optimizer.npz)")
+    want = _flatten({k: params_np for k in MOMENTS[kind]})
     if count is None or sorted(flat) != sorted(want) or any(
             np.shape(flat[k]) != np.shape(want[k]) for k in want):
         print(f"warning: optimizer state in {path} does not match the "
               f"current optimizer layout; reinitializing moments")
         return None
-    tree = _unflatten(flat)
-    return int(count), tree["mu"], tree["nu"]
+    return OptState(kind=kind, count=int(count), moments=_unflatten(flat))
 
 
-def load_checkpoint(ckpt_dir: str, suffix: str = "", params_template=None):
-    """Returns (params, state, moments, infos, histories) as numpy trees and
-    dicts.  ``moments`` is (count, mu, nu) when ``params_template`` (the
-    params to be trained, numpy) is given and ``optimizer.npz`` matches
-    it, else None."""
+def load_checkpoint(ckpt_dir: str, suffix: str = "", params_template=None,
+                    optim: str = "adam"):
+    """Returns (params, state, opt_state, infos, histories) as numpy trees
+    and dicts.  ``opt_state`` is an ``optim.OptState`` of numpy moments
+    when ``params_template`` (the params to be trained, numpy) is given and
+    ``optimizer.npz`` matches it, else None; an ``optimizer.npz`` of
+    another optimizer than ``optim`` raises."""
     blob = load_model_npz(os.path.join(ckpt_dir, f"model{suffix}.npz"))
-    moments = None
+    opt_state = None
     opt_path = os.path.join(ckpt_dir, f"optimizer{suffix}.npz")
     if params_template is not None and os.path.exists(opt_path):
-        moments = _load_moments(opt_path, params_template)
+        opt_state = _load_opt_state(opt_path, params_template, optim)
     infos, histories = {}, {}
     ip = os.path.join(ckpt_dir, f"infos{suffix}.json")
     hp = os.path.join(ckpt_dir, f"histories{suffix}.json")
@@ -79,7 +95,7 @@ def load_checkpoint(ckpt_dir: str, suffix: str = "", params_template=None):
     if os.path.exists(hp):
         with open(hp) as f:
             histories = json.load(f)
-    return blob["params"], blob["state"], moments, infos, histories
+    return blob["params"], blob["state"], opt_state, infos, histories
 
 
 def optimistic_restore(params, loaded, word_mapping=None, verbose=True):

@@ -1,11 +1,12 @@
-"""Training step: forward + loss + clip + Adam (reference train.py:134-164);
-the counterpart of ``subgc_tpu/train/step.py``.
+"""Training step: forward + loss + clip + optimizer step (reference
+train.py:134-164); the counterpart of ``subgc_tpu/train/step.py``.
 
 The step runs the teacher-forced forward under autograd, sums the language
 and sGPN losses, takes the gradients of every parameter leaf and applies
-the clipped Adam update in place.  Its metrics stay tensors on the device:
-the step makes no host sync, and the caller reads them when it logs.  The
-multi-device path of the JAX package is not ported (ROADMAP item 13).
+the clipped step of ``tcfg.optim`` (``optim.apply_update``) in place.  Its
+metrics stay tensors on the device: the step makes no host sync, and the
+caller reads them when it logs.  The multi-device path of the JAX package
+is not ported (ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ class TrainBatch(NamedTuple):
 class TrainState(NamedTuple):
     params: dict               # leaves that require grad
     model_state: dict          # BatchNorm running statistics
-    opt_state: optim.AdamState
+    opt_state: optim.OptState
     step: int                  # the reference's `iteration`
 
 
@@ -56,7 +57,8 @@ def batch_to_device(batch: TrainBatch, device) -> TrainBatch:
 def init_train_state(params, model_state, tcfg: TrainConfig,
                      step: int = 0) -> TrainState:
     return TrainState(params=params, model_state=model_state,
-                      opt_state=optim.init_adam(params, tcfg), step=step)
+                      opt_state=optim.init_opt_state(params, tcfg),
+                      step=step)
 
 
 def _forward_loss(params, model_state, batch: TrainBatch, cfg: ModelConfig,
@@ -93,8 +95,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         leaves = optim.tree_leaves(ts.params)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         lr = optim.learning_rate(ts.step, epoch, tcfg)
-        opt_state, grad_norm = optim.adam_update(ts.params, grads,
-                                                 ts.opt_state, lr, tcfg)
+        opt_state, grad_norm = optim.apply_update(ts.params, grads,
+                                                  ts.opt_state, lr, tcfg)
         dev = total.device
         metrics = {"loss": total.detach(), "lang_loss": lang.detach(),
                    "gpn_loss": (gpn_loss.detach() if gpn_loss is not None

@@ -491,3 +491,137 @@ def test_bf16_wrappers_refuse_mixed_dtypes_and_gradients_on_card(op):
     x[-1].requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         fn(*x)
+
+
+# ---- thread safety: a server launches from several threads at once
+
+def _hammer(fn, n_threads=16, per_thread=200):
+    """``fn`` from ``n_threads`` threads at once, with a short switch
+    interval so that an unlocked read-modify-write would lose updates."""
+    import sys
+    import threading
+    barrier = threading.Barrier(n_threads)
+    errors = []
+
+    def work():
+        try:
+            barrier.wait(timeout=30)
+            for _ in range(per_thread):
+                fn()
+        except Exception as e:         # pragma: no cover - reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in ts) and not errors, errors
+
+
+def test_launch_counts_from_many_threads_are_exact():
+    """Every count of 16 x 200 concurrent launches is kept."""
+    A.reset_launch_counts()
+    names = ["LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES",
+             "ROW_BF16_LAUNCHES"]
+    i = iter(range(10 ** 9))
+    _hammer(lambda: A.count_launch(names[next(i) % 4]))
+    assert [getattr(A, n) for n in names] == [800] * 4
+    assert A.PROJECT_LAUNCHES == 3200
+    A.reset_launch_counts()
+    assert A.PROJECT_LAUNCHES == A.LAUNCHES == 0
+
+
+def test_first_kernel_lookup_loads_once_across_threads(monkeypatch):
+    """Threads racing to the first call of an entry load the library and
+    set the entry's signature once (the build itself is _build.load's,
+    under its own lock)."""
+    import time
+    from subgc_tpu_torch.ops import _build
+    loads = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return type("Entry", (), {})()
+
+    def slow_load(name):
+        loads.append(name)
+        time.sleep(0.05)              # a build takes a while
+        return Lib()
+
+    monkeypatch.setattr(_build, "load", slow_load)
+    monkeypatch.setattr(A, "_FNS", {})
+    got = []
+    _hammer(lambda: got.append(A._fn("subgc_row_attention_f32", 11, 8)),
+            n_threads=8, per_thread=5)
+    assert loads == ["attention"]
+    assert len({id(f) for f in got}) == 1 and len(got) == 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["shared", "row", "shared_bf16", "row_bf16"])
+def test_launch_counts_exact_under_concurrent_launches_on_card(op):
+    """8 threads launch a wrapper 25 times each on the card (the serving
+    pattern): every launch is counted, once, and every result equals the
+    single-threaded one."""
+    _cuda()
+    if op.startswith("shared"):
+        x = _inputs("subgraph", S=80, B=2, seed=3)
+        fn, counter = A.shared_attention, "LAUNCHES"
+        if op.endswith("bf16"):
+            x, counter = _to_bf16(x, SHARED_STREAMS), "SHARED_BF16_LAUNCHES"
+    else:
+        x = _row_inputs(R=320, seed=3)
+        fn, counter = A.row_attention, "ROW_LAUNCHES"
+        if op.endswith("bf16"):
+            x, counter = _to_bf16(x, ROW_STREAMS), "ROW_BF16_LAUNCHES"
+    x = [t.cuda() for t in x]
+    want = fn(*x)
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    outs = []
+    _hammer(lambda: outs.append(fn(*x)), n_threads=8, per_thread=25)
+    torch.cuda.synchronize()
+    assert getattr(A, counter) == 200 and A.PROJECT_LAUNCHES == 200
+    others = {"LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES",
+              "ROW_BF16_LAUNCHES"} - {counter}
+    assert all(getattr(A, n) == 0 for n in others)
+    for out in outs:
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_first_build_and_load_from_many_threads_on_card(tmp_path,
+                                                        monkeypatch):
+    """Threads that all make the first call into a fresh build directory:
+    nvcc runs once, and every thread gets the kernel's answer."""
+    _cuda()
+    from subgc_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    monkeypatch.setattr(A, "_FNS", {})
+    runs = []
+    real_run = _build.subprocess.run
+
+    def counted(*a, **k):
+        runs.append(a)
+        return real_run(*a, **k)
+
+    monkeypatch.setattr(_build.subprocess, "run", counted)
+    x = [t.cuda() for t in _row_inputs(R=16, seed=4)]
+    want = A.row_attention_ref(*x)
+    outs = []
+    _hammer(lambda: outs.append(A.row_attention(*x)), n_threads=6,
+            per_thread=1)
+    torch.cuda.synchronize()
+    assert len(runs) == 1 and len(outs) == 6
+    assert len([f for f in tmp_path.iterdir() if f.suffix == ".so"]) == 1
+    for out, w in outs:
+        torch.testing.assert_close(w, want[1], rtol=0, atol=1e-5)

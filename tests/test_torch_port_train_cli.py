@@ -33,7 +33,7 @@ from subgc_tpu_torch.data.dataset import TrainLoader
 from subgc_tpu_torch.models.params import (init_params, init_params_numpy,
                                            params_to_numpy)
 from subgc_tpu_torch.train import checkpoint as C
-from subgc_tpu_torch.train.optim import init_adam
+from subgc_tpu_torch.train.optim import init_opt_state
 
 from .test_torch_port_train import flat_paths, one_thread  # noqa: F401
 
@@ -95,7 +95,7 @@ def test_checkpoints_load_both_ways(tmp_path, capsys):
     cfg = ModelConfig(**_tiny(gcn_bn=True, use_gpn=False))
     params, state = init_params(cfg, seed=2, device="cpu",
                                 requires_grad=True)
-    opt = init_adam(params, TrainConfig())
+    opt = init_opt_state(params, TrainConfig())
     C.save_checkpoint(str(tmp_path / "port"), params, state, opt,
                       {"iter": 5, "epoch": 1}, {"loss_history": {"5": 1.0}})
     jp, js, _, infos, hist = JCK.load_checkpoint(str(tmp_path / "port"))
@@ -108,7 +108,7 @@ def test_checkpoints_load_both_ways(tmp_path, capsys):
             np.testing.assert_array_equal(g[k], w[k])
     p2, s2, moments, infos2, _ = C.load_checkpoint(
         str(tmp_path / "port"), params_template=flat_params(params))
-    assert moments[0] == 0 and infos2 == infos
+    assert moments.count == 0 and infos2 == infos
     assert not hasattr(p2["decoder"]["logit"]["w"], "requires_grad")
 
     jparams, jstate = init_params_numpy(ModelConfig(**_tiny()), seed=4)
@@ -227,12 +227,51 @@ def test_cli_trains_from_a_jax_checkpoint(data, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--self_critical_after", "0"], ["--n_devices", "2"],
+    ["--n_devices", "4"], ["--n_devices", "2"],
     ["--trace_steps", "1:2"], ["--packed_path", "shards/*.bin"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
     with pytest.raises(SystemExit, match="ROADMAP item"):
         p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),
                     "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("mode", ["scst", "sgd"])
+def test_cli_trains_with_scst_and_another_optimizer(mode, data, capsys):
+    """``--self_critical_after 0`` trains with SCST from the first
+    iteration (one ``scst iter 0`` line, the iteration the JAX CLI logs
+    at), ``--optim sgd`` with optax's SGD; each logs finite losses and
+    writes a checkpoint that both packages load, its optimizer state of
+    the optimizer that ran, which another ``--optim`` cannot resume."""
+    root, man = data
+    out = str(root / f"port_{mode}")
+    extra = (["--self_critical_after", "0"] if mode == "scst"
+             else ["--optim", "sgd"])
+    flags = (["Sub_GC_Kar", "--checkpoint_path", out, "--device", "cpu",
+              "--batch_size", "2", "--save_checkpoint_every", "3",
+              "--val_images_use", "2", "--losses_log_every", "1",
+              "--max_iters", "3"] + _dim_flags() + _data_flags(man) + extra)
+    assert p_cli.main(flags) == {"iter": 3, "epoch": 0}
+    log = capsys.readouterr().out
+    assert ("scst iter 0: loss" in log) == (mode == "scst")
+    with open(os.path.join(out, "histories.json")) as f:
+        hist = json.load(f)
+    assert sorted(hist["loss_history"], key=int) == ["1", "2", "3"]
+    assert all(np.isfinite(v) for v in hist["loss_history"].values())
+    jp, _, _, infos, _ = JCK.load_checkpoint(out)
+    assert infos["iter"] == 3
+    optim = "adam" if mode == "scst" else "sgd"
+    assert JC.config_from_json(JC.TrainConfig,
+                               infos["train_config"]).optim == optim
+    pp, _, opt, _, _ = C.load_checkpoint(out, params_template=jp,
+                                         optim=optim)
+    assert (opt.kind, opt.count) == (optim, 3)
+    g, w = flat_paths(pp), flat_paths(jp)
+    assert sorted(g) == sorted(w)
+    for k in w:
+        np.testing.assert_array_equal(g[k], w[k])
+    with pytest.raises(ValueError, match=f"holds '{optim}'"):
+        p_cli.main(flags[:-2] + ["--optim", "rmsprop", "--auto_resume", "1",
+                                 "--max_iters", "4"])
 
 
 def test_cli_trains_on_the_card_unless_asked(tmp_path, monkeypatch):
