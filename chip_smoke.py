@@ -197,6 +197,30 @@ Serving and SCST; 21 runs after 19, 22 after 20:
     clipped gradients: params within rtol 1e-5 of the larger of each
     param before and after the step.
 
+Diverse beam groups and the host side; 23 runs after 19, 24 after 22:
+
+23. Sub_GC_Kar in diverse beam groups (beam 4 in 2 groups of 2, diversity
+    lambda 0.5) on phase 4's first 16 images, float32 and bf16 + bf16
+    gates: the dtype's beam-shared kernel exactly groups x seq_length
+    launches (one per active group and step, at B = 2) and no other;
+    card against CPU: identical keep sets, float32 >= 95% identical
+    captions and scores within rtol 1e-4, bf16 scores within 2e-2 and the
+    caption agreement printed (phase 18's rule); then the kernel alone at
+    the groups' shape (image-shared, S=160, G=16, B=2), both dtypes;
+24. the host library built with g++ from ``native/`` (build seconds); the
+    C++ tokenizer, mBLEU-4 and pairwise CIDEr against their Python paths
+    on phase 4's captions (rtol 1e-10), host ms per image of both; a
+    64-image packed shard written by the port at full width (1,000
+    sub-graphs a record, in the temporary directory), read
+    equal, field for field, by the C++ and the numpy readers and equal to
+    what was packed, gather ms per image against the npz read; the C++
+    and Python samplers' ms per image on its 5 x 1005 node-IoU matrices;
+    three Sub_GC_Kar float32 train steps (64 images) from batches a
+    ``BatchPrefetcher`` copies from pinned memory on its own stream,
+    bitwise equal (losses and params) to the same batches copied
+    synchronously, under PyTorch's deterministic algorithms; ms of the
+    data and step phases of both.
+
 Prints a ``{"kernels": [...]}`` line (both kernels and their bf16
 variants), then ``{"ok": true, "device": ...}`` as the last line.  Needs
 no network and imports no jax.
@@ -1332,6 +1356,9 @@ def run_train_steps(label, cfg, tcfg, params_np, state_np, n_hoisted,
         before = [t.detach().clone() for t in tree_leaves(ts.params)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        # the sync debug mode is process-wide: the strict step reads a batch
+        # copied synchronously before it (no prefetcher thread runs here;
+        # phase 24's copies it from pinned memory after every such check)
         torch.cuda.set_sync_debug_mode("error" if strict else 0)
         try:
             ts, m = steps[ss](ts, batch, gen, 0, 0.25 if ss else 0.0)
@@ -2316,6 +2343,374 @@ def run_scst(params_np, state_np):
     return row, row_bf16, stats
 
 
+# ---- diverse beam groups (phase 23)
+
+DIVERSE = dict(beam_size=4, group_size=2, diversity_lambda=0.5)
+
+
+def run_diverse(params, cpu_params, state, examples, vocab):
+    """Phase 23: Sub_GC_Kar in diverse beam groups (beam 4 in 2 groups of
+    2, lambda 0.5) on phase 4's first 16 images, float32 and bf16 + bf16
+    gates: the dtype's shared kernel exactly G x seq_length launches (one
+    per active group and step) and no other; card against CPU: identical
+    keep sets; float32 >= 95% identical captions, scores rtol 1e-4; bf16
+    scores within 2e-2, caption agreement printed (phase 18's rule: a
+    near-tie flips a word).  Then the shared kernel alone at the groups'
+    shape in both dtypes.  Returns ({dtype: launches}, stats, checks)."""
+    import torch
+    from subgc_tpu_torch import build_configs, run_test_split
+    from subgc_tpu_torch.ops import attention as A
+    ex = examples[:BATCH_IMAGES]
+    loader = MemoryLoader(ex)
+    launches, stats = {}, {}
+    for dtype, model in (("float32", {}), ("bfloat16", BF16_MODEL)):
+        cfg, ecfg, _ = build_configs(
+            "Sub_GC_Kar", model=model,
+            eval=dict(max_subgraph_bucket=BUCKET, **DIVERSE))
+        run_test_split(params, state, loader, cfg, ecfg, vocab,
+                       verbose=False, batch_images=BATCH_IMAGES,
+                       device="cuda")                       # warm-up
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        preds, wall, n_caps = run_test_split(
+            params, state, loader, cfg, ecfg, vocab, verbose=False,
+            batch_images=BATCH_IMAGES, device="cuda")
+        name = "LAUNCHES" if dtype == "float32" else "SHARED_BF16_LAUNCHES"
+        n = getattr(A, name)
+        others = (A.LAUNCHES + A.ROW_LAUNCHES + A.SHARED_BF16_LAUNCHES
+                  + A.ROW_BF16_LAUNCHES - n)
+        want = ecfg.group_size * cfg.seq_length
+        if n != want or others:
+            fail(f"diverse {dtype}: shared kernel launched {n} times and the "
+                 f"others {others}; expected {ecfg.group_size} groups x "
+                 f"{cfg.seq_length} steps = {want} and 0")
+        check_project_launches(f"diverse {dtype}", n)
+        check_predictions(preds, len(ex), ecfg.gpn_max_subg)
+        _, dec_ms = phase_times(params, state, ex, cfg, ecfg,
+                                torch.device("cuda"))
+        t0 = time.perf_counter()
+        cpu_preds, _, _ = run_test_split(
+            cpu_params, state, loader, cfg, ecfg, vocab, verbose=False,
+            batch_images=BATCH_IMAGES, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if dtype == "float32":
+            same, total = compare_card_cpu(preds, cpu_preds)
+            if same < 0.95 * total:
+                fail(f"diverse float32: only {same}/{total} captions agree "
+                     f"between card and cpu")
+            worst = None
+        else:
+            worst = 0.0
+            for g, c in zip(preds, cpu_preds):
+                gs = dict(zip(np.asarray(g["sorted_subgraph_ind"]).tolist(),
+                              g["subgraph_score"]))
+                cs = dict(zip(np.asarray(c["sorted_subgraph_ind"]).tolist(),
+                              c["subgraph_score"]))
+                if sorted(gs) != sorted(cs):
+                    fail(f"diverse bf16: image {g['image_id']} keep sets "
+                         f"differ card {sorted(gs)} cpu {sorted(cs)}")
+                worst = max([worst] + [abs(gs[k] - cs[k]) for k in gs])
+            if worst > 2e-2:
+                fail(f"diverse bf16: sGPN scores card vs cpu differ by "
+                     f"{worst:.3g} > 2e-2")
+            same, total = caption_agreement(preds, cpu_preds)
+        print(f"diverse groups {dtype} (Sub_GC_Kar, beam 4 in 2 groups, "
+              f"lambda 0.5): {len(ex)} images, {n_caps} captions in "
+              f"{wall:.3f} s = {n_caps / wall:.1f} captions/s, beam decode "
+              f"{dec_ms:.2f} ms; shared kernel launches {n} = "
+              f"{ecfg.group_size} x {cfg.seq_length}; card vs cpu "
+              f"({cpu_s:.1f} s on cpu): keep sets identical, {same}/{total} "
+              f"captions identical"
+              + (f", sGPN scores within {worst:.3g}" if worst is not None
+                 else ""))
+        launches[dtype] = n
+        stats[dtype] = {"images": len(ex), "captions": n_caps,
+                        "captions_per_s": n_caps / wall, "decode_ms": dec_ms,
+                        "launches": n, "captions_vs_cpu": [same, total]}
+    # the kernel alone at the groups' shape: image-shared, S = 16 images x
+    # keep 10, B = beam_size / group_size
+    bdash = DIVERSE["beam_size"] // DIVERSE["group_size"]
+    checks = {"float32": check_attention(params, "image", BATCH_IMAGES * 10,
+                                         BATCH_IMAGES, seed=70, beams=bdash),
+              "bfloat16": check_attention(params, "image", BATCH_IMAGES * 10,
+                                          BATCH_IMAGES, seed=71, beams=bdash,
+                                          bf16=True)}
+    stats["kernel"] = checks
+    return launches, stats, checks
+
+
+# ---- the host library and the input path (phase 24)
+
+HOST_IMAGES = 64        # phase 4's images; the packed shard's records
+HOST_SUBGRAPHS = 1000   # sub-graphs a record holds: the Karpathy banks' size
+PREFETCH_STEPS = 3
+
+
+def host_ms(fn, n):
+    """Host ms per item of ``fn()`` over ``n`` items (median of 3 runs)."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0) / n)
+    return statistics.median(times)
+
+
+def check_scorer_cores(preds):
+    """The C++ scorer cores against their Python paths on phase 4's
+    captions: per image the tokenizer on its captions, mBLEU-4 among them
+    and pairwise CIDEr against the next 5 images' captions under a df
+    corpus of every image's captions; within rtol 1e-10.  Each pass is
+    timed once (the Python one takes ~5 s)."""
+    from subgc_tpu_torch.eval import pairwise as PP
+    caps = [list(p["caption"]) for p in preds]
+    n = len(caps)
+
+    def run(tok, mb4, cider):
+        toks = [tok(c) for c in caps]
+        out = []
+        for i in range(n):
+            refs = [s for j in range(1, 6) for s in toks[(i + j) % n]]
+            out.append((mb4(toks[i]), cider(toks, toks[i], refs)))
+        return toks, out
+
+    t0 = time.perf_counter()
+    ta, a = run(PP.ptb_tokenize_batch, PP.mutual_bleu4,
+                PP.pairwise_cider_matrix)
+    t1 = time.perf_counter()
+    tb, b = run(PP.ptb_tokenize_batch_plain, PP.mutual_bleu4_plain,
+                PP.pairwise_cider_matrix_plain)
+    t2 = time.perf_counter()
+    if ta != tb:
+        fail("the C++ tokenizer disagrees with its Python path")
+    worst = 0.0
+    for (ma, ca), (mb, cb) in zip(a, b):
+        for x, y in ((ma, mb), (ca, cb)):
+            rel = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+            worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    if worst > 1e-10:
+        fail(f"C++ scorer cores vs Python paths: relative error {worst:.3g} "
+             f"> 1e-10")
+    res = {"cpp_ms_per_image": 1e3 * (t1 - t0) / n,
+           "python_ms_per_image": 1e3 * (t2 - t1) / n, "max_rel_err": worst}
+    print(f"scorer cores on {n} images x {len(caps[0])} captions (tokenize, "
+          f"mBLEU-4, pairwise CIDEr vs 50): C++ {res['cpp_ms_per_image']:.3f}"
+          f" ms / image, Python {res['python_ms_per_image']:.3f} ms / image "
+          f"(host), max relative difference {worst:.3g}")
+    return res
+
+
+def full_size_image(rng, cfg, n_subg):
+    """One image's npz dicts at full size: 36 detections of 2048 features
+    and 1599 classes, 64 relations, a bank of 5 + n_subg sub-graphs."""
+    N, K = cfg.obj_num - 1, cfg.rel_num - 1
+    sg = {"object_fmap": rng.rand(N, cfg.att_feat_size).astype("f"),
+          "object_dist": rng.rand(N, cfg.num_obj_classes).astype("f"),
+          "rel_ind": rng.randint(0, N, (K, 2)).astype(np.int64),
+          "pred_dist": rng.rand(K, cfg.num_rel_classes).astype("f"),
+          "boxes": (rng.rand(N, 4) * 296).astype("f")}
+    total = 5 + n_subg
+    obj = rng.rand(total, N) < 0.15
+    obj[np.arange(total), rng.randint(0, N, total)] = True
+    pred = rng.rand(total, K) < 0.1
+    entries = [[None, o.astype(np.int64), p.astype(np.int64),
+                np.zeros((0, 2), np.int64), o.nonzero()[0][:1]]
+               for o, p in zip(obj, pred)]
+    return sg, {"node_iou_mtx": rng.rand(5, total).astype("f"),
+                "subgraph_mask_list": entries}
+
+
+def check_packed_shard(cfg, workdir):
+    """A 64-image shard written by the port at full width, its records read
+    by the C++ and the numpy readers (equal, field for field, and equal to
+    what was packed); the gather per image against the npz read."""
+    from subgc_tpu_torch.data import packed as P
+    from subgc_tpu_torch.io.sg_npz import SGDir, write_feat_npz
+    rng = np.random.RandomState(24)
+    spec = P.PackedSpec(feat_dim=cfg.att_feat_size,
+                        n_obj_cls=cfg.num_obj_classes,
+                        n_rel_cls=cfg.num_rel_classes,
+                        max_subg=HOST_SUBGRAPHS)
+    sg_dir, mask_dir = (os.path.join(workdir, d) for d in ("sg", "mask"))
+    os.makedirs(sg_dir)
+    os.makedirs(mask_dir)
+    records, t0 = [], time.perf_counter()
+    for i in range(HOST_IMAGES):
+        sg, bank = full_size_image(rng, cfg, HOST_SUBGRAPHS)
+        write_feat_npz(os.path.join(sg_dir, f"{i}.npz"), sg)
+        write_feat_npz(os.path.join(mask_dir, f"{i}.npz"), bank)
+        records.append(P.pack_image(spec, i, sg, bank))
+    path = os.path.join(workdir, "shard.bin")
+    P.write_shard(path, spec, records)
+    write_s = time.perf_counter() - t0
+    native = P.PackedShard(path, use_native=True)
+    plain = P.PackedShard(path, use_native=False)
+    names = [n for n, _, _ in spec.record_fields()]
+    for i in range(HOST_IMAGES):
+        a, b = native.record(i), plain.record(i)
+        for name in names:
+            if name == "img_id":
+                same = a[name] == b[name] == i
+            else:
+                same = np.array_equal(a[name], b[name])
+            if not same:
+                fail(f"packed shard: record {i} field {name} differs "
+                     f"between the C++ and numpy readers")
+    whole = native._native.gather(range(HOST_IMAGES))
+    if any(whole[i].tobytes() != records[i] for i in range(HOST_IMAGES)):
+        fail("packed shard: a gathered record differs from what was packed")
+    sgd, maskd = SGDir(sg_dir), SGDir(mask_dir)
+    order = np.random.RandomState(1).permutation(HOST_IMAGES)
+    res = {"record_mb": spec.record_size / 2 ** 20,
+           "shard_mb": os.path.getsize(path) / 2 ** 20,
+           "write_s": write_s,
+           "native_gather_ms_per_image": host_ms(
+               lambda: [native._native.gather([i]) for i in order],
+               HOST_IMAGES),
+           "npz_read_ms_per_image": host_ms(
+               lambda: [(sgd.get(i), maskd.get(i)) for i in order],
+               HOST_IMAGES)}
+    print(f"packed shard: {HOST_IMAGES} records of {res['record_mb']:.3f} "
+          f"MiB ({res['shard_mb']:.1f} MiB, written with its npz in "
+          f"{write_s:.1f} s); C++ and numpy readers equal on every field; "
+          f"C++ gather {res['native_gather_ms_per_image']:.3f} ms / image "
+          f"against the npz read {res['npz_read_ms_per_image']:.3f} ms / "
+          f"image (host)")
+    return res, mask_dir
+
+
+def time_samplers(tcfg, mask_dir):
+    """The C++ and Python positive/negative samplers on the shard's
+    full-size node-IoU matrices (5 x 1005), host ms per image."""
+    from subgc_tpu_torch.data.dataset import sample_pos_neg
+    from subgc_tpu_torch.io.sg_npz import SGDir
+    from subgc_tpu_torch.ops.native import sample_pos_neg_native
+    ious = [SGDir(mask_dir).get(i)["node_iou_mtx"]
+            for i in range(HOST_IMAGES)]
+    half, thres, spi = tcfg.gpn_batch, tcfg.gpn_label_thres, tcfg.seq_per_img
+
+    def cpp():
+        return [sample_pos_neg_native(m, thres, half, spi, seed=i)
+                for i, m in enumerate(ious)]
+
+    def plain():
+        rng = np.random.RandomState(0)
+        return [sample_pos_neg(m, thres, half, spi, rng) for m in ious]
+
+    for idx in cpp() + plain():
+        if idx is None or idx.shape != (spi, half, 2) or idx.min() < 0 \
+                or idx.max() >= ious[0].shape[1]:
+            fail("sampler: an index set out of shape or range")
+    res = {"cpp_ms_per_image": host_ms(cpp, HOST_IMAGES),
+           "python_ms_per_image": host_ms(plain, HOST_IMAGES)}
+    print(f"pos/neg sampler on 5 x {ious[0].shape[1]} node-IoU matrices: "
+          f"C++ {res['cpp_ms_per_image']:.4f} ms / image, Python "
+          f"{res['python_ms_per_image']:.4f} ms / image (host)")
+    return res
+
+
+def run_prefetched_steps(params_np, state_np, dev="cuda"):
+    """Three Sub_GC_Kar float32 train steps (64 images) from batches a
+    ``BatchPrefetcher`` copies to the card on its own stream, against the
+    same batches copied synchronously from the same params and generator:
+    losses and params bitwise equal.  Both runs use PyTorch's deterministic
+    algorithms, so that any difference is the input path's."""
+    import torch
+    from subgc_tpu_torch import build_configs
+    from subgc_tpu_torch.data.prefetch import BatchPrefetcher
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.models.params import params_from_numpy
+    from subgc_tpu_torch.train.optim import tree_leaves
+    from subgc_tpu_torch.train.step import (batch_to_device,
+                                            init_train_state, make_train_step)
+    from subgc_tpu_torch.utils.profiling import PhaseTimers
+    cfg, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
+    dev = torch.device(dev)
+    batches = [synthetic_train_batch(cfg, tcfg.batch_size, seed=240 + i)
+               for i in range(PREFETCH_STEPS)]
+    step = make_train_step(cfg, tcfg, ss_active=False)
+
+    def run(next_batch, timers):
+        ts = init_train_state(params_from_numpy(params_np, dev, True),
+                              params_from_numpy(state_np, dev), tcfg)
+        gen = torch.Generator(device=dev).manual_seed(24)
+        losses = []
+        for _ in range(PREFETCH_STEPS):
+            with timers.phase("data"):      # host wait for the batch
+                batch = next_batch()
+            with timers.phase("step", sync=dev):
+                ts, m = step(ts, batch, gen, 0, 0.0)
+            losses.append(m["loss"])
+        return losses, [t.detach() for t in tree_leaves(ts.params)]
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sync_t = PhaseTimers()
+        it = iter(batches)
+        sync = run(lambda: batch_to_device(next(it), dev), sync_t)
+        counter = iter(range(10 ** 6))
+
+        def get_batch():
+            return batches[next(counter) % PREFETCH_STEPS], None, False
+
+        pre_t = PhaseTimers()
+        prefetch = BatchPrefetcher(
+            get_batch, depth=2, device=dev,
+            place=lambda b: batch_to_device(
+                b, dev, non_blocking=dev.type == "cuda"))
+        try:
+            pre = run(lambda: prefetch.next()[0], pre_t)
+        finally:
+            prefetch.stop()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    if prefetch.thread.is_alive():
+        fail("prefetch: the producer thread did not stop")
+    diff = max((a - b).abs().max().item() for a, b in zip(sync[1], pre[1]))
+    if not (all(torch.equal(a, b) for a, b in zip(sync[0], pre[0]))
+            and all(torch.equal(a, b) for a, b in zip(sync[1], pre[1]))):
+        fail(f"prefetched train steps differ from synchronous ones: losses "
+             f"{[x.item() for x in pre[0]]} vs {[x.item() for x in sync[0]]}"
+             f", params max |d| {diff:.3g}")
+    s, p = sync_t.summary(), pre_t.summary()
+    res = {"losses": [x.item() for x in sync[0]],
+           "sync_data_ms": s["data"]["mean_ms"],
+           "sync_step_ms": s["step"]["mean_ms"],
+           "prefetch_data_ms": p["data"]["mean_ms"],
+           "prefetch_step_ms": p["step"]["mean_ms"]}
+    print(f"prefetched train steps (Sub_GC_Kar float32, {tcfg.batch_size} "
+          f"images): losses and params bitwise equal to synchronous "
+          f"loading; synchronous: data {res['sync_data_ms']:.2f} + step "
+          f"{res['sync_step_ms']:.2f} ms; prefetched: data "
+          f"{res['prefetch_data_ms']:.2f} + step {res['prefetch_step_ms']:.2f}"
+          f" ms (mean of {PREFETCH_STEPS})")
+    return res
+
+
+def run_host(preds, params_np, state_np):
+    """Phase 24: the host library built from ``native/``, the scorer cores,
+    the packed shard and its readers, both samplers, and prefetched train
+    steps.  Returns the stats printed."""
+    import tempfile
+    from subgc_tpu_torch import build_configs
+    from subgc_tpu_torch.ops import _build, native, native_packed
+    stats = {"build_s": {}}
+    for name, mod in (("subgc_native", native),
+                      ("packed_reader", native_packed)):
+        mod.library()
+        stats["build_s"][name] = _build.BUILD_INFO[name]["seconds"]
+    print(f"host library from native/: g++ "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in stats["build_s"].items()))
+    stats["scorers"] = check_scorer_cores(preds)
+    cfg, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
+    with tempfile.TemporaryDirectory() as workdir:
+        stats["packed"], mask_dir = check_packed_shard(cfg, workdir)
+        stats["sampler"] = time_samplers(tcfg, mask_dir)
+    stats["prefetch"] = run_prefetched_steps(params_np, state_np)
+    return stats
+
+
 def main():
     try:
         import torch
@@ -2456,6 +2851,11 @@ def main():
     bf16_grd_launches = run_bf16_grounding(params, cpu_params, state,
                                            examples, vocab)
 
+    # ---- 23. diverse beam groups, float32 and bf16
+    div_launches, div_stats, div_checks = run_diverse(
+        params, cpu_params, state, examples, vocab)
+    print(json.dumps({"diverse": div_stats}))
+
     # ---- 21. serving over HTTP: both kernels alone at its dispatch's
     # shapes (8 images x keep 10 rows of 2 beams), then the server
     serve_rows = SERVE_BATCH * keep
@@ -2486,6 +2886,8 @@ def main():
     # ---- 22. SCST and the four other optimizers
     scst_row, scst_row_bf16, scst_stats = run_scst(params_np, state)
     print(json.dumps({"scst": scst_stats}))
+    # ---- 24. the host library and the input path
+    print(json.dumps({"host": run_host(preds, params_np, state)}))
     print(json.dumps({"bf16": {
         "test": bf16_test, "train": bf16_train,
         "shared_attention_bf16": dict(zip(
@@ -2501,8 +2903,9 @@ def main():
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
         "launches": (launches + fan_launches + fullgc_launches
                      + ctl_launches + sup_launches + val_shared
-                     + serve_f32),
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
+                     + serve_f32 + div_launches["float32"]),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in checks + [div_checks["float32"]]),
         "ms": main_check["ms"],
         "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"],
@@ -2525,9 +2928,10 @@ def main():
         "route": "cuda",
         "source": "subgc_tpu_torch/ops/csrc/attention.cu",
         "replaces": "subgc_tpu/ops/pallas_attention.py:75",
-        "launches": bf16_launches + serve_bf16,
+        "launches": bf16_launches + serve_bf16 + div_launches["bfloat16"],
         "max_abs_err": max(c["max_abs_err"]
-                           for c in bf16_shared + [serve_bf16_check]),
+                           for c in bf16_shared + [serve_bf16_check,
+                                                   div_checks["bfloat16"]]),
         "ms": bf16_shared[0]["ms"],
         "plain_ms": bf16_shared[0]["plain_ms"],
         "bound_ms": bf16_shared[0]["bound_ms"],

@@ -16,10 +16,13 @@ h5) and writes ``all_scores_<tag>_<oracle_num>-subgraph.npy``;
 decoding; ``--verbose_loss 1`` also prints the split's teacher-forced LM
 loss.
 
+``--group_size G`` decodes in G diverse beam groups of ``beam_size / G``
+beams each (``--diversity_lambda``); ``--packed_path`` reads packed shards
+(a path, a glob or a comma list) in place of ``--sg_dir`` / ``--mask_dir``.
+
 Flags whose code the port does not have yet stop with a message naming the
-ROADMAP item: ``--n_devices`` > 1 and ``--shard_subgraphs`` (parallelism),
-``--packed_path`` (packed shards) and ``--group_size`` > 1 (diverse beam
-groups).  Full_GC_Kar has no batched route (nor in the JAX
+ROADMAP item: ``--n_devices`` > 1 and ``--shard_subgraphs`` (parallelism).
+Full_GC_Kar has no batched route (nor in the JAX
 CLI), so ``run_test_split`` refuses it: decode it with
 ``models.subgc.encode_image`` + ``beam_search``.
 """
@@ -60,7 +63,7 @@ def parse_args(argv=None):
     p.add_argument("--topk_temp", type=float, default=None)
     p.add_argument("--the_k", type=int, default=None)
     p.add_argument("--group_size", type=int, default=None,
-                   help="> 1 not ported yet (ROADMAP item 16)")
+                   help="diverse beam groups (beam_size must divide by it)")
     p.add_argument("--diversity_lambda", type=float, default=None)
     p.add_argument("--decoding_constraint", type=int, default=None)
     p.add_argument("--length_penalty", type=str, default=None)
@@ -70,7 +73,8 @@ def parse_args(argv=None):
     p.add_argument("--sg_dir", type=str, default=None)
     p.add_argument("--mask_dir", type=str, default=None)
     p.add_argument("--packed_path", type=str, default=None,
-                   help="not ported yet (ROADMAP item 14)")
+                   help="packed shard(s) (glob / comma-list) replacing "
+                        "--sg_dir/--mask_dir")
     p.add_argument("--annotations_json", type=str, default=None,
                    help="GT annotation json for language eval "
                         "({image_id: [captions]}); defaults to the "
@@ -103,9 +107,6 @@ def _refuse_unported(args):
         (args.n_devices is not None and args.n_devices > 1, "--n_devices",
          "13 (parallelism)"),
         (args.shard_subgraphs, "--shard_subgraphs", "13 (parallelism)"),
-        (args.packed_path, "--packed_path", "14 (packed shards)"),
-        (args.group_size is not None and args.group_size > 1,
-         "--group_size > 1", "16 (diverse beam groups)"),
     ]
     for on, flag, item in refused:
         if on:
@@ -245,7 +246,13 @@ def main(argv=None):
                                                        "use_topk_sampling",
                                                        "remove_bad_endings")
                                    else v})
-    for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir"]:
+    if ecfg.group_size > 1 and ecfg.beam_size % ecfg.group_size != 0:
+        raise SystemExit(
+            f"--beam_size {ecfg.beam_size} must be divisible by "
+            f"--group_size {ecfg.group_size} (each diverse group runs "
+            f"beam_size/group_size beams)")
+    for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir",
+              "packed_path"]:
         if getattr(args, k) is not None:
             dcfg = dcfg.replace(**{k: getattr(args, k)})
     # re-scoring a saved captions file runs nothing on a device

@@ -9,25 +9,37 @@ the loop mirrors `train.py:54-240`: warmup/decay LR, scheduled sampling
 ``_crash`` checkpoint on failure.  ``--start_from`` takes a checkpoint of
 either package (``model.npz`` + ``infos.json``; the port's optimizer state
 when its ``optimizer.npz`` matches, and an error when another ``--optim``
-wrote it), with ``--word_mapping`` for a vocab remap.  Batches load
-synchronously.  ``--optim`` picks any of the JAX package's five optimizers
-(``adam``, the presets', ``adamw``, ``sgd``, ``rmsprop``, ``adagrad``).
+wrote it), with ``--word_mapping`` for a vocab remap.  ``--optim`` picks
+any of the JAX package's five optimizers (``adam``, the presets',
+``adamw``, ``sgd``, ``rmsprop``, ``adagrad``).
 ``--self_critical_after E`` trains with SCST (``train/scst.py``) from
 epoch E on: each sentence's reward is its sample's CIDEr against its
 image's GT captions minus its greedy baseline's.
+
+As in the JAX loop, a producer thread (``data/prefetch.py``, depth 2)
+assembles the next train batches under ``loader_lock`` and copies them to
+the device while the step runs; the val batches come from the same loader
+under the same lock.  ``PhaseTimers`` time the ``data``, ``step`` and
+``scst_step`` phases and print their report at the end.  ``--trace_steps
+START:COUNT`` writes a ``torch.profiler`` Chrome trace of those train
+steps to ``<checkpoint_path>/trace/trace.json``.  ``--packed_path`` reads
+packed shards (a path, a glob or a comma list) in place of ``--sg_dir`` /
+``--mask_dir``.
 
 ``--compute_dtype bfloat16`` (with ``--bf16_lstm_gates`` and
 ``--bf16_residuals``) trains in the bf16 chain over float32 parameters and
 Adam state, bf16 matmuls summing in float32; the checkpoint's
 ``model_config`` records it, so ``cli/test.py`` decodes it in bf16.
 
-Flags whose code the port does not have yet stop with a message naming the
-ROADMAP item: ``--n_devices`` > 1, ``--trace_steps`` and ``--packed_path``.
+``--n_devices`` > 1 stops with a message naming its ROADMAP item (13,
+parallelism).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import threading
 import time
 
 import numpy as np
@@ -43,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--auto_resume", type=int, default=0,
                    help="resume from checkpoint_path/model.npz if present")
     p.add_argument("--trace_steps", type=str, default=None,
-                   help="not ported yet (ROADMAP item 14)")
+                   help="'START:COUNT': a torch.profiler trace of those "
+                        "train steps into checkpoint_path/trace")
     p.add_argument("--word_mapping", type=str, default=None,
                    help="word_mapping.npy for cross-dataset finetune: maps "
                         "new vocab index -> old (models/__init__.py:14-41)")
@@ -69,7 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--sg_dir", type=str, default=None)
     p.add_argument("--mask_dir", type=str, default=None)
     p.add_argument("--packed_path", type=str, default=None,
-                   help="not ported yet (ROADMAP item 14)")
+                   help="packed shard(s) (glob / comma-list) replacing "
+                        "--sg_dir/--mask_dir")
     p.add_argument("--glove_path", type=str, default=None)
     p.add_argument("--obj_name_path", type=str, default=None)
     p.add_argument("--rel_name_path", type=str, default=None)
@@ -109,8 +123,6 @@ def _refuse_unported(args):
     refused = [
         (args.n_devices is not None and args.n_devices > 1, "--n_devices",
          "13 (parallelism)"),
-        (args.trace_steps, "--trace_steps", "14 (profiling)"),
-        (args.packed_path, "--packed_path", "14 (packed shards)"),
     ]
     for on, flag, item in refused:
         if on:
@@ -126,7 +138,7 @@ def _overrides(args):
         if getattr(args, k) is not None:
             overrides["train"][k] = getattr(args, k)
     for k in ["input_json", "input_label_h5", "sg_dir", "mask_dir",
-              "glove_path", "obj_name_path", "rel_name_path"]:
+              "packed_path", "glove_path", "obj_name_path", "rel_name_path"]:
         if getattr(args, k) is not None:
             overrides["data"][k] = getattr(args, k)
     for k in ["compute_dtype", "use_bn", "gcn_layers", "gcn_residual",
@@ -150,6 +162,7 @@ def main(argv=None):
 
     from ..config import build_configs, config_to_json
     from ..data.dataset import TrainLoader
+    from ..data.prefetch import BatchPrefetcher
     from ..device import resolve_device
     from ..io.glove import class_embeddings
     from ..models.params import init_params_numpy, params_from_numpy
@@ -158,6 +171,7 @@ def main(argv=None):
     from ..train.step import (batch_to_device, init_train_state,
                               make_train_step, make_val_step)
     from ..utils.logging import MetricsLogger
+    from ..utils.profiling import PhaseTimers, device_trace
 
     dev = resolve_device(args.device)
     mcfg, tcfg, dcfg = build_configs(args.model_type, mode="train",
@@ -241,21 +255,42 @@ def main(argv=None):
     print(f"training {args.model_type}: vocab {mcfg.vocab_size}, "
           f"{len(loader.split_ix['train'])} train images, "
           f"batch {tcfg.batch_size}, {mcfg.compute_dtype}, device {dev}")
+    timers = PhaseTimers()
+    loader_lock = threading.Lock()   # val batches share the loader state
+
+    def _next_train():
+        with loader_lock:
+            return loader.get_batch("train")
+
+    prefetch = BatchPrefetcher(
+        _next_train, depth=2, device=dev,
+        place=lambda b: batch_to_device(b, dev,
+                                        non_blocking=dev.type == "cuda"))
     metrics_log = MetricsLogger(args.checkpoint_path)
+    trace_dir = os.path.join(args.checkpoint_path, "trace")
+    trace_start = trace_stop = -1
+    if args.trace_steps:
+        a, b = args.trace_steps.split(":")
+        trace_start, trace_stop = int(a), int(a) + int(b)
+    trace = contextlib.ExitStack()
     t_start = time.time()
     n_steps = 0
     try:
         while True:
             sp = ss_prob(epoch, tcfg)
-            batch, infos_b, wrapped = loader.get_batch("train")
+            if iteration == trace_start:
+                trace.enter_context(device_trace(trace_dir))
+            with timers.phase("data"):
+                batch, (infos_b, wrapped) = prefetch.next()
             if scst_fns is not None and epoch >= args.self_critical_after:
                 # each sentence is scored against its image's GT captions
                 gts_tokens = [loader.ds.captions_for(info.ix)
                               for info in infos_b
                               for _ in range(tcfg.seq_per_img)]
-                ts, scst_loss, mean_reward = scst_train_step(
-                    ts, batch_to_device(batch, dev), gts_tokens,
-                    loader.vocab, *scst_fns, generator, epoch)
+                with timers.phase("scst_step"):
+                    ts, scst_loss, mean_reward = scst_train_step(
+                        ts, batch, gts_tokens, loader.vocab, *scst_fns,
+                        generator, epoch)
                 zero = torch.zeros((), device=dev)
                 metrics = {"loss": torch.tensor(scst_loss),
                            "lang_loss": torch.tensor(scst_loss),
@@ -265,10 +300,14 @@ def main(argv=None):
                           f"mean reward {mean_reward:.4f}")
             else:
                 step = step_hoisted if sp == 0.0 else step_ss
-                ts, metrics = step(ts, batch_to_device(batch, dev),
-                                   generator, epoch, sp)
+                with timers.phase("step"):
+                    ts, metrics = step(ts, batch, generator, epoch, sp)
             iteration += 1
             n_steps += 1
+            if iteration == trace_stop:
+                trace.close()
+                print(f"device trace ({trace_start}:{trace_stop}) -> "
+                      f"{trace_dir}")
 
             if iteration % tcfg.losses_log_every == 0 or iteration % 5 == 0:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -297,7 +336,8 @@ def main(argv=None):
                 loader.reset_iterator("val")
                 max_val = tcfg.val_images_use // tcfg.batch_size
                 for _ in range(max(1, min(2, max_val))):
-                    vb, _, vw = loader.get_batch("val")
+                    with loader_lock:
+                        vb, _, vw = loader.get_batch("val")
                     vloss += float(val_step(ts.params, ts.model_state,
                                             batch_to_device(vb, dev)))
                     nval += 1
@@ -326,7 +366,10 @@ def main(argv=None):
         save(suffix="_crash")
         raise
     finally:
+        prefetch.stop()
+        trace.close()
         metrics_log.close()
+    print(timers.report())
     print(f"done at iter {iteration}, epoch {epoch}")
     return {"iter": iteration, "epoch": epoch}
 

@@ -2,14 +2,17 @@
 
 The counterpart of ``subgc_tpu/data/dataset.py`` (reference
 `dataloaders/dataloader.py` for training, `dataloader_test.py` for eval),
-reading the directory-of-npz format.  Produces numpy ``TrainBatch`` and
-``TestExample`` records with fixed shapes.
+reading the directory-of-npz format or, with ``DataConfig.packed_path``,
+packed shards (``data/packed_adapter.py``).  Produces numpy ``TrainBatch``
+and ``TestExample`` records with fixed shapes.
 
-The training loader is the JAX package's with ``native_sampler=False``,
-draw for draw: the same shuffles (``random.Random``), the same numpy
-stream for the positive/negative sub-graph sampler and the captions, so
-the same seed gives the same batches.  The C++ sampler (``native/``) and
-the packed-shard format are not ported (ROADMAP item 14).
+The training loader is the JAX package's, draw for draw: the same shuffles
+(``random.Random``), the same numpy stream for the captions and the
+positive/negative sub-graph sampler, so the same seed gives the same
+batches.  By default it samples with the host library's C++ sampler
+(``ops/native.py``, seeded from the loader's numpy stream), as the JAX
+loader does; ``native_sampler=False`` or ``SUBGC_NATIVE_SAMPLER=0`` selects
+the Python sampler, the plain version, in both packages.
 
 The weighted positive/negative sampler reproduces the reference
 (dataloader.py:224-304): positives have node-IoU >= thres with the
@@ -19,6 +22,7 @@ have IoU < thres and exclude columns positive for any sentence.
 """
 from __future__ import annotations
 
+import os
 import random
 from typing import Iterator, NamedTuple
 
@@ -100,16 +104,18 @@ class Loader:
 
     def __init__(self, mcfg: ModelConfig, dcfg: DataConfig,
                  seq_per_img: int = 5, seed: int = 2019):
-        if dcfg.packed_path:
-            raise NotImplementedError(
-                "packed shards are not ported to subgc_tpu_torch yet "
-                "(ROADMAP item 14)")
         self.mcfg = mcfg
         self.dcfg = dcfg
         self.seq_per_img = seq_per_img
         self.ds = CaptionDataset(dcfg.input_json, dcfg.input_label_h5)
-        self.sg = SGDir(dcfg.sg_dir)
-        self.masks = SGDir(dcfg.mask_dir)
+        if dcfg.packed_path:
+            # mmap'ed fixed-record shard(s) through the C++ reader
+            from .packed_adapter import PackedMaskSource, PackedSGSource
+            self.sg = PackedSGSource(dcfg.packed_path)
+            self.masks = PackedMaskSource(dcfg.packed_path)
+        else:
+            self.sg = SGDir(dcfg.sg_dir)
+            self.masks = SGDir(dcfg.mask_dir)
         self.split_ix = self.ds.split_indices(
             dcfg.use_MRNN_split, dcfg.mrnn_split_dict, dcfg.train_only)
         self.iterators = {k: 0 for k in self.split_ix}
@@ -142,7 +148,7 @@ class TrainLoader(Loader):
     """Epoch iteration with shuffling + pos/neg sub-graph sampling."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
-                 seed: int = 2019):
+                 seed: int = 2019, native_sampler: bool = True):
         super().__init__(mcfg, dcfg, tcfg.seq_per_img, seed)
         self.tcfg = tcfg
         self.batch_size = tcfg.batch_size
@@ -151,6 +157,11 @@ class TrainLoader(Loader):
         self.use_gt_subg = mcfg.use_gt_subg
         self._shuffled = {k: list(v) for k, v in self.split_ix.items()}
         random.Random(seed).shuffle(self._shuffled["train"])
+        # the C++ sampler: the Python sampler's branches and weights, its
+        # draws from a generator seeded from this loader's numpy stream
+        self.native_sampler = (native_sampler
+                               and os.environ.get("SUBGC_NATIVE_SAMPLER",
+                                                  "1") != "0")
 
     def _labels_for(self, ix):
         seq_length = self.ds.seq_length
@@ -169,24 +180,47 @@ class TrainLoader(Loader):
         img_id = self.ds.images[ix]["id"]
         m = self.mcfg
         spi, half = self.seq_per_img, self.half
-        md = self.masks.get(img_id)
+        fast = getattr(self.masks, "get_fast", None)
+        md = fast(img_id) if fast else self.masks.get(img_id)
         if self.use_gt_subg:
             # Sup. model: GT sub-graph i for sentence i in every slot
             # (dataloader.py:305-333)
             mask_idx = np.tile(np.arange(spi)[:, None, None], (1, half, 2))
         else:
-            mask_idx = sample_pos_neg(md["node_iou_mtx"], self.thres, half,
-                                      spi, self.rng)
-        mask_info = md["subgraph_mask_list"]
-        sub_obj = np.full((spi, 2, half, m.obj_num), m.obj_num - 1, np.int32)
-        sub_mask = np.zeros((spi, 2, half, m.obj_num), np.float32)
-        for i in range(spi):
-            for k in range(half):
-                for p in range(2):
-                    oi, am, _ = _left_pack(mask_info[mask_idx[i, k, p]],
-                                           m.obj_num, m.rel_num)
-                    sub_obj[i, p, k] = oi
-                    sub_mask[i, p, k] = am
+            mask_idx = None
+            if self.native_sampler:
+                from ..ops.native import sample_pos_neg_native
+                mask_idx = sample_pos_neg_native(
+                    md["node_iou_mtx"], self.thres, half, spi,
+                    seed=int(self.rng.randint(1 << 31)))
+            if mask_idx is None:
+                # not a fallback from a failure: the C++ sampler declines
+                # matrices with fewer rows than sentences (and no sampled
+                # column or negative pool), and the JAX loader hands those
+                # to the Python sampler too
+                mask_idx = sample_pos_neg(md["node_iou_mtx"], self.thres,
+                                          half, spi, self.rng)
+        if fast:
+            # shard rows are already left-packed: one gather
+            # [spi, half, 2, obj] -> [spi, 2, half, obj]
+            sub_obj = np.ascontiguousarray(
+                md["sub_obj_ind"][mask_idx].transpose(0, 2, 1, 3)
+            ).astype(np.int32, copy=False)
+            sub_mask = np.ascontiguousarray(
+                md["sub_att_mask"][mask_idx].transpose(0, 2, 1, 3)
+            ).astype(np.float32, copy=False)
+        else:
+            mask_info = md["subgraph_mask_list"]
+            sub_obj = np.full((spi, 2, half, m.obj_num), m.obj_num - 1,
+                              np.int32)
+            sub_mask = np.zeros((spi, 2, half, m.obj_num), np.float32)
+            for i in range(spi):
+                for k in range(half):
+                    for p in range(2):
+                        oi, am, _ = _left_pack(mask_info[mask_idx[i, k, p]],
+                                               m.obj_num, m.rel_num)
+                        sub_obj[i, p, k] = oi
+                        sub_mask[i, p, k] = am
         graph, _ = self._scene_graph(img_id)
         label, masks = self._labels_for(ix)
         return graph, sub_obj, sub_mask, label, masks
@@ -264,7 +298,8 @@ class EvalLoader(Loader):
         img = self.ds.images[ix]
         img_id = img["id"]
         m = self.mcfg
-        md = self.masks.get(img_id)
+        fast = getattr(self.masks, "get_fast", None)
+        md = fast(img_id) if fast else self.masks.get(img_id)
         total = md["node_iou_mtx"][:, 5:].shape[1]
         # flat order: first-half block then second-half block, skipping the
         # 5 GT slots (dataloader_test.py:226-230) — contiguous 5..5+2M
@@ -278,11 +313,16 @@ class EvalLoader(Loader):
         att_mask[:, 0] = 1.0       # padded slots keep the dummy node "live"
         pred_ind = np.full((self.bucket, m.rel_num), m.rel_num - 1, np.int32)
         valid = np.zeros((self.bucket,), bool)
-        mask_info = md["subgraph_mask_list"]
-        for s in range(S):
-            obj_ind[s], att_mask[s], pred_ind[s] = _left_pack(
-                mask_info[5 + s], m.obj_num, m.rel_num)
-            valid[s] = True
+        if fast:
+            obj_ind[:S] = md["sub_obj_ind"][5:5 + S]
+            att_mask[:S] = md["sub_att_mask"][5:5 + S]
+            pred_ind[:S] = md["sub_pred_ind"][5:5 + S]
+        else:
+            mask_info = md["subgraph_mask_list"]
+            for s in range(S):
+                obj_ind[s], att_mask[s], pred_ind[s] = _left_pack(
+                    mask_info[5 + s], m.obj_num, m.rel_num)
+        valid[:S] = True
 
         graph, sg = self._scene_graph(img_id)
         subs = SubgraphSet(obj_ind=obj_ind, pred_ind=pred_ind,

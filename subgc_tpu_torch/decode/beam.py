@@ -1,4 +1,4 @@
-"""Beam search over a batch of sub-graphs (group_size 1).
+"""(Diverse) beam search over a batch of sub-graphs.
 
 The counterpart of ``subgc_tpu/decode/beam.py``.  Where the JAX package
 vmaps a single-sub-graph search, every tensor here carries a leading
@@ -13,6 +13,16 @@ Reference semantics kept (`models/CaptionModel.py:28-176`):
   knocked to -1000
 * the final pick sorts done beams by penalized score, ties to the earlier
   slot (``lax.top_k``'s order)
+* diverse groups (``group_size`` G > 1, ``bdash = beam_size // G`` beams
+  each): the groups run staggered over T + G - 1 outer steps, group g at
+  local time ``t - g``, in ascending order; group g subtracts
+  ``diversity_lambda`` once per occurrence of each token that groups < g
+  chose at its local time, read from their rows as this outer step left
+  them (updated and re-permuted); stored per-token logprobs are the
+  unaugmented ones; the output concatenates each group's top-bdash list,
+  so ``seq`` is group 0's best.  The JAX package runs a masked expand for
+  the inactive groups of an outer step and discards it; here only the
+  active groups decode, G x T steps in all, with the same tokens.
 
 Ties in the expansion resolve (lower word, then lower beam), the JAX
 package's word-major order: k ``torch.argmax`` passes (first index on ties)
@@ -33,8 +43,8 @@ from ..utils.penalty import penalty_fn
 class BeamOut(NamedTuple):
     seq: torch.Tensor        # [S, T] best beam tokens
     logprobs: torch.Tensor   # [S, T] best beam per-token logprobs
-    all_seqs: torch.Tensor   # [S, bdash, T] top done beams
-    all_ps: torch.Tensor     # [S, bdash] their penalized scores
+    all_seqs: torch.Tensor   # [S, G*bdash, T] each group's top done beams
+    all_ps: torch.Tensor     # [S, G*bdash] their penalized scores
 
 
 def _topk_small_wordmajor(cand, k: int):
@@ -81,8 +91,10 @@ def _init_group(S: int, bdash: int, cfg: ModelConfig, device) -> _GroupState:
 
 
 def _expand_group(params, feats, gs: _GroupState, t: int, cfg: ModelConfig,
-                  ecfg: EvalConfig, pen) -> _GroupState:
-    """One beam step at time t: decode from the carried tokens, then expand."""
+                  ecfg: EvalConfig, pen, diversity_tokens=None) -> _GroupState:
+    """One beam step at local time t: decode from the carried tokens, then
+    expand.  ``diversity_tokens`` [S, n]: the tokens earlier groups chose at
+    this local time; each occurrence subtracts ``diversity_lambda``."""
     S, bdash, T = gs.beam_seq.shape
     lp, state, _ = D.decode_step(params, gs.state, gs.token, feats, cfg)
     V1 = lp.shape[-1]
@@ -94,6 +106,13 @@ def _expand_group(params, feats, gs: _GroupState, t: int, cfg: ModelConfig,
         logprobsf = logprobsf.masked_fill(hit, float("-inf"))
     logprobsf[..., V1 - 1] += -1000.0        # in place: lp is not read again
     unaug = logprobsf
+    if diversity_tokens is not None:
+        # a float32 one-hot sum: a token chosen twice counts twice
+        counts = torch.zeros((S, V1), dtype=torch.float32, device=lp.device)
+        counts.scatter_add_(1, diversity_tokens,
+                            torch.ones_like(diversity_tokens,
+                                            dtype=torch.float32))
+        logprobsf = logprobsf - ecfg.diversity_lambda * counts[:, None, :]
 
     cand = gs.beam_sum[..., None] + logprobsf
     if t == 0:
@@ -126,21 +145,35 @@ def _expand_group(params, feats, gs: _GroupState, t: int, cfg: ModelConfig,
                        done_seq=done_seq, done_lps=done_lps, done_p=done_p)
 
 
+def _top_done(gs: _GroupState, bdash: int):
+    """(seqs, lps, ps) of a group's top-bdash done beams; a stable
+    descending sort is ``lax.top_k``'s pick (ties to the lower slot)."""
+    top_i = torch.sort(gs.done_p, dim=-1, descending=True,
+                       stable=True).indices[:, :bdash]
+    rows = torch.arange(top_i.shape[0], device=top_i.device)[:, None]
+    return (gs.done_seq[rows, top_i], gs.done_lps[rows, top_i],
+            gs.done_p[rows, top_i])
+
+
 @torch.no_grad()
 def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
                 ecfg: EvalConfig) -> BeamOut:
-    """Beam search for every sub-graph row of ``feats`` at once.
+    """Beam search for every sub-graph row of ``feats`` at once, in
+    ``ecfg.group_size`` diverse groups.
 
     Both beam attention layouts run (image-shared when ``feats.att_img`` is
-    set, per-sub-graph otherwise); the beams of a row always share its
-    features.  Diverse groups (group_size > 1) are not ported yet.  Runs
-    without autograd, so params that require grad decode as their detached
-    copies do.
+    set, per-sub-graph otherwise); the beams of a group always share their
+    row's features, so each decode step launches the beam-shared attention
+    once at B = bdash.  Runs without autograd, so params that require grad
+    decode as their detached copies do.
     """
-    if ecfg.group_size != 1:
-        raise NotImplementedError("diverse beam groups are not ported yet")
+    G = ecfg.group_size
+    if G < 1 or ecfg.beam_size % G:
+        raise ValueError(f"beam_size {ecfg.beam_size} must be a multiple of "
+                         f"group_size {G}")
     params = D.cast_decoder_weights(params, cfg)     # once per call
-    bdash = ecfg.beam_size
+    bdash = ecfg.beam_size // G
+    T = cfg.seq_length
     S = feats.fc.shape[0]
     device = feats.fc.device
     if feats.att_img is not None:
@@ -152,15 +185,19 @@ def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
         feats = feats._replace(att_img=ai, p_att_img=pi, img_ix=ii)
     pen = penalty_fn(ecfg.length_penalty)
 
-    gs = _init_group(S, bdash, cfg, device)
-    for t in range(cfg.seq_length):
-        gs = _expand_group(params, feats, gs, t, cfg, ecfg, pen)
+    groups = [_init_group(S, bdash, cfg, device) for _ in range(G)]
+    # outer step t: group g is active at local time t - g in [0, T); the
+    # groups update in ascending order, so group g reads groups < g as
+    # this step left them (CaptionModel.py:122-171)
+    for t in range(T + G - 1):
+        for g in range(max(0, t - T + 1), min(G, t + 1)):
+            lt = t - g
+            div = torch.cat([groups[pg].beam_seq[..., lt]
+                             for pg in range(g)], dim=-1) if g else None
+            groups[g] = _expand_group(params, feats, groups[g], lt, cfg,
+                                      ecfg, pen, diversity_tokens=div)
 
-    # stable descending sort = lax.top_k's pick (ties to the lower slot)
-    top_i = torch.sort(gs.done_p, dim=-1, descending=True,
-                       stable=True).indices[:, :bdash]
-    rows = torch.arange(S, device=device)[:, None]
-    all_seqs = gs.done_seq[rows, top_i]
-    all_lps = gs.done_lps[rows, top_i]
+    seqs, lps, ps = zip(*(_top_done(gs, bdash) for gs in groups))
+    all_seqs, all_lps = torch.cat(seqs, 1), torch.cat(lps, 1)
     return BeamOut(seq=all_seqs[:, 0], logprobs=all_lps[:, 0],
-                   all_seqs=all_seqs, all_ps=gs.done_p[rows, top_i])
+                   all_seqs=all_seqs, all_ps=torch.cat(ps, 1))

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, TrainConfig
-from ..graph import SceneGraph, to_device
+from ..graph import SceneGraph
 from ..models import subgc
 from . import optim
 from .loss import language_model_loss
@@ -40,13 +40,23 @@ class TrainState(NamedTuple):
     step: int                  # the reference's `iteration`
 
 
-def batch_to_device(batch: TrainBatch, device) -> TrainBatch:
-    """A host TrainBatch as tensors on ``device`` (index arrays int64)."""
-    def t(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(
-            device=device, dtype=dtype)
+def batch_to_device(batch: TrainBatch, device,
+                    non_blocking: bool = False) -> TrainBatch:
+    """A host TrainBatch as tensors on ``device`` (index arrays int64).
+    With ``non_blocking`` (a CUDA device) each host tensor is pinned and
+    copied without blocking, on the current stream: the caller orders its
+    readers after that stream (``data/prefetch.py``)."""
+    def t(x, dtype=None):
+        h = torch.from_numpy(np.ascontiguousarray(x))
+        if dtype is None:
+            dtype = torch.int64 if h.dtype in (torch.int32, torch.int64) \
+                else h.dtype
+        h = h.to(dtype)
+        if non_blocking:
+            h = h.pin_memory()
+        return h.to(device, non_blocking=non_blocking)
 
-    return TrainBatch(graph=to_device(batch.graph, device),
+    return TrainBatch(graph=SceneGraph(*(t(x) for x in batch.graph)),
                       labels=t(batch.labels, torch.int64),
                       masks=t(batch.masks, torch.float32),
                       sub_obj_ind=t(batch.sub_obj_ind, torch.int64),

@@ -2,7 +2,8 @@
 JAX package's, on one checkpoint written by the JAX package's
 ``save_checkpoint`` from ``init_params``: the two ``captions_*.npy`` /
 ``ctl_captions_*.npy`` artifacts are equal entry by entry (sGPN scores
-within atol 1e-5).  Flags whose code is not ported stop the port's CLI.
+within atol 1e-5).  Flags whose code is not ported (parallelism) stop the
+port's CLI; ``--packed_path`` and ``--group_size``, ported since, decode.
 """
 import json
 import os
@@ -93,13 +94,55 @@ def test_cli_artifacts_match_jax(run, preset, name):
         assert all(len(a["caption"]) == 3 for a in pp)
 
 
+def pack_run_data(common, path):
+    """A packed shard of the ``run`` fixture's dataset at ``path``."""
+    from subgc_tpu_torch.data import packed as P
+    flags = dict(zip(common[::2], common[1::2]))
+    with open(flags["--input_json"]) as f:
+        images = json.load(f)["images"]
+    sg, masks = SGDir(flags["--sg_dir"]), SGDir(flags["--mask_dir"])
+    first = sg.get(images[0]["id"])
+    spec = P.PackedSpec(feat_dim=first["object_fmap"].shape[1],
+                        n_obj_cls=first["object_dist"].shape[1],
+                        n_rel_cls=first["pred_dist"].shape[1], max_subg=16)
+    P.write_shard(path, spec, [P.pack_image(spec, im["id"], sg.get(im["id"]),
+                                            masks.get(im["id"]))
+                               for im in images])
+    return path
+
+
 @pytest.mark.parametrize("flags", [
     ["--n_devices", "2"], ["--shard_subgraphs"],
     ["--packed_path", "shards/*.bin"], ["--group_size", "2"]])
-def test_cli_refuses_unported_flags(tmp_path, flags):
-    with pytest.raises(SystemExit, match="ROADMAP item"):
-        p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),
-                    "--device", "cpu"] + flags)
+def test_cli_refuses_unported_flags(run, tmp_path, flags):
+    """Parallelism (ROADMAP item 13) stops the CLI.  Packed shards and
+    diverse groups, refused until they were ported, now decode: a shard's
+    captions equal the npz run's, and two groups of two beams give one
+    caption per kept sub-graph."""
+    if flags[0] in ("--n_devices", "--shard_subgraphs"):
+        with pytest.raises(SystemExit, match="ROADMAP item"):
+            p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),
+                        "--device", "cpu"] + flags)
+        return
+    ckpt, common = run
+    base = ["Sub_GC_Kar", "--device", "cpu"]
+    if flags[0] == "--packed_path":
+        os.makedirs(tmp_path / "shards")
+        pack_run_data(common, str(tmp_path / "shards" / "part-0.bin"))
+        flags = ["--packed_path", str(tmp_path / "shards" / "*.bin")]
+    else:
+        flags = flags + ["--beam_size", "4"]
+    got = p_cli.main(base + common + flags + ["--iter_tag", "flag_on"])
+    want = p_cli.main(base + common + ["--iter_tag", "flag_off"])
+    gp = np.load(got["captions_path"], allow_pickle=True).tolist()
+    wp = np.load(want["captions_path"], allow_pickle=True).tolist()
+    assert len(gp) == len(wp) == 2
+    for a, b in zip(gp, wp):
+        np.testing.assert_array_equal(a["sorted_subgraph_ind"],
+                                      b["sorted_subgraph_ind"])
+        assert len(a["caption"]) == len(b["caption"]) > 0
+        if flags[0] == "--packed_path":
+            assert a["caption"] == b["caption"]
 
 
 def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):

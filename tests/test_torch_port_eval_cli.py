@@ -8,9 +8,9 @@
   (and without a card), equal to the JAX CLI's, also from
   ``--annotations_json``;
 * ``--verbose_loss 1`` reports the split's LM loss within atol 1e-5 of
-  the JAX CLI's (its loader on the Python sampler, as the port's is);
+  the JAX CLI's (both loaders on their default, the C++ sampler);
 * ``cli/{diversity,rerank,controllability}.py`` give the JAX CLIs'
-  outputs; the rerank CLI runs with ``--device cpu`` and writes an equal
+  outputs (both packages on their C++ scorer cores); the rerank CLI runs with ``--device cpu`` and writes an equal
   ``consensus_rerank_ind.npy``.
 """
 import json
@@ -22,7 +22,6 @@ import pytest
 import torch
 
 import subgc_tpu.config as JC
-import subgc_tpu.ops.native as JN
 import subgc_tpu.train.step as JSTEP
 import subgc_tpu_torch.train.step as PSTEP
 from subgc_tpu.cli import controllability as j_ctl
@@ -138,8 +137,8 @@ def test_only_sent_eval_rescores_without_decoding(run, decoded, monkeypatch,
 def test_language_eval_top1_and_verbose_loss_equal_jax(run, monkeypatch,
                                                        capsys):
     """The test.sh command (--language_eval 1 at oracle 1) with the LM loss
-    report: the JAX loader on its Python sampler; both CLIs' val-step
-    losses recorded at full precision."""
+    report: both loaders on the C++ sampler; both CLIs' val-step losses
+    recorded at full precision."""
     _, ckpt, common = run
     seen = {"j": [], "p": []}
 
@@ -157,7 +156,6 @@ def test_language_eval_top1_and_verbose_loss_equal_jax(run, monkeypatch,
         monkeypatch.setattr(module, "make_val_step", make_recording)
     recording(JSTEP, "j")
     recording(PSTEP, "p")
-    monkeypatch.setenv("SUBGC_NATIVE_SAMPLER", "0")
     flags = ["--language_eval", "1", "--verbose_loss", "1"]
     j_cli.main(common + flags + ["--iter_tag", "jl"])
     j_line = [ln for ln in capsys.readouterr().out.splitlines()
@@ -183,9 +181,7 @@ def _save(path, obj):
     return path
 
 
-def test_diversity_cli_equals_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(JN, "_lib", None)
-    monkeypatch.setattr(JN, "_tried", True)
+def test_diversity_cli_equals_jax(tmp_path):
     caps = _save(str(tmp_path / "captions_x.npy"), _fanout_predictions())
     train = str(tmp_path / "train.json")
     with open(train, "w") as f:
@@ -195,9 +191,7 @@ def test_diversity_cli_equals_jax(tmp_path, monkeypatch):
     assert_same(p_div.main(argv), j_div.main(argv))
 
 
-def test_rerank_cli_equals_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(JN, "_lib", None)
-    monkeypatch.setattr(JN, "_tried", True)
+def test_rerank_cli_equals_jax(tmp_path):
     preds = _fanout_predictions(n_images=5, seed=1)
     annos = [{"id": 900 + i, "sentences": _sentences(3, 50 + i)}
              for i in range(30)]

@@ -1,18 +1,19 @@
 """The port's offline metrics against the JAX package's:
 
-* ``eval/pairwise.py`` (the Python paths of the JAX package's
-  ``ops/native.py`` scorer entry points): exactly equal to the JAX package
-  with its native library switched off, and within rtol 1e-10 of its
-  default (C++) path, the bound ``tests/test_native.py`` holds the two
-  JAX paths to;
-* ``diversity_report``: equal, one RNG stream in the reference's order;
+* ``eval/pairwise.py``: its plain versions (the Python paths) exactly
+  equal to the JAX package with its native library switched off; its
+  defaults (the C++ cores) within rtol 1e-10 of the JAX defaults (bitwise
+  in ``tests/test_torch_port_native.py``);
+* ``diversity_report``: equal, one RNG stream in the reference's order,
+  both packages on their C++ mBLEU-4;
 * ``controllability_scores`` with noun vectors drawn from a seed: equal;
 * ``find_nn_images(device="cpu")``: the JAX indices, index for index, on
   integer-valued features (exact float32 distances) with duplicated train
   rows, so distance ties decide the order; and a float64 argsort with
   index tie-break;
 * ``select_top_captions``, ``consensus_rerank``'s order and
-  ``rerank_predictions``' top-1: equal.
+  ``rerank_predictions``' top-1: equal, both packages on their C++
+  pairwise CIDEr.
 """
 import numpy as np
 import pytest
@@ -62,17 +63,20 @@ def _fanout_predictions(n_images=4, seed=0):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pairwise_scorers_equal_jax_python_paths(jax_python_paths, seed):
+    """The port's plain versions (its Python paths) against the JAX
+    package's Python paths, exactly."""
     assert not JN.available()
     sents = _sentences(12, seed) + ["", "dog", "A man's dog, running!"]
-    assert_same(PP.ptb_tokenize_batch(sents), JN.ptb_tokenize_batch(sents))
-    toks = PP.ptb_tokenize_batch(sents[:12])
+    assert_same(PP.ptb_tokenize_batch_plain(sents),
+                JN.ptb_tokenize_batch(sents))
+    toks = PP.ptb_tokenize_batch_plain(sents[:12])
     docs = [toks[i:i + 3] for i in range(0, 12, 3)]
     hyps, refs = toks[:5], toks[5:] + ["zebra"]
-    assert_same(PP.pairwise_cider_matrix(docs, hyps, refs),
+    assert_same(PP.pairwise_cider_matrix_plain(docs, hyps, refs),
                 JN.pairwise_cider_matrix(docs, hyps, refs))
-    assert_same(PP.pairwise_cider_matrix(docs, hyps, refs, sigma=3.0),
+    assert_same(PP.pairwise_cider_matrix_plain(docs, hyps, refs, sigma=3.0),
                 JN.pairwise_cider_matrix(docs, hyps, refs, sigma=3.0))
-    assert_same(PP.mutual_bleu4(toks[:5]), JN.mutual_bleu4(toks[:5]))
+    assert_same(PP.mutual_bleu4_plain(toks[:5]), JN.mutual_bleu4(toks[:5]))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -93,7 +97,7 @@ def test_pairwise_scorers_match_jax_native_cores(seed):
 
 @pytest.mark.parametrize("mb4,train", [(True, True), (False, True),
                                        (True, False)])
-def test_diversity_report_equals_jax(jax_python_paths, mb4, train):
+def test_diversity_report_equals_jax(mb4, train):
     preds = _fanout_predictions()
     train_sents = _sentences(200, 7) + [preds[0]["caption"][0]] if train \
         else ()
@@ -206,7 +210,7 @@ def test_select_top_captions_equals_jax(rand_k):
 
 
 @pytest.mark.parametrize("k,m", [(60, 125), (3, 4)])
-def test_consensus_rerank_equals_jax(jax_python_paths, k, m):
+def test_consensus_rerank_equals_jax(k, m):
     preds, annos, te, tr = _rerank_inputs()
     nn = PR.find_nn_images(te, tr, num_nn=20, device="cpu")
     df = {a["id"]: a["sentences"] for a in annos}
@@ -217,7 +221,7 @@ def test_consensus_rerank_equals_jax(jax_python_paths, k, m):
     assert_same(ph, jh)          # each entry's "reranked" captions
 
 
-def test_rerank_predictions_equals_jax(jax_python_paths):
+def test_rerank_predictions_equals_jax():
     preds, annos, te, tr = _rerank_inputs(seed=1)
     df = {a["id"]: a["sentences"] for a in annos}
     p = PR.rerank_predictions(preds, annos, tr, te, df, top_k=3, k=5, m=9,

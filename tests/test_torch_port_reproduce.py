@@ -4,7 +4,8 @@ Sub_GC_Kar (language eval + consensus rerank), Sub_GC_MRNN (language eval
 + diversity), Sub_GC_Flickr_CTL (controllability) and Sub_GC_Flickr_GRD
 (grounding, then the rerank-aware second pass).  Every stage's result in
 ``reproduce_summary.json`` is equal, apart from the captions paths, which
-name each run's own checkpoint copy.
+name each run's own checkpoint copy; both packages score with their C++
+cores.
 """
 import json
 import os
@@ -13,7 +14,6 @@ import shutil
 import numpy as np
 import pytest
 
-import subgc_tpu.ops.native as JN
 from subgc_tpu.cli import reproduce as j_repro
 from subgc_tpu.cli import test as j_cli
 from subgc_tpu.data.synthetic import generate_dataset
@@ -148,8 +148,6 @@ def manifests(tmp_path_factory):
 def test_reproduce_summary_equals_jax(manifests, monkeypatch):
     root, man = manifests
     monkeypatch.chdir(root)
-    monkeypatch.setattr(JN, "_lib", None)     # the JAX Python scorer paths
-    monkeypatch.setattr(JN, "_tried", True)
     j = j_repro.main(["--manifest", man["j"]])
     p = p_repro.main(["--manifest", man["p"], "--device", "cpu"])
     with open(root / "out_p" / "reproduce_summary.json") as f:

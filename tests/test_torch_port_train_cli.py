@@ -2,8 +2,10 @@
 the JAX package on ``subgc_tpu.data.synthetic`` data (this needs h5py):
 
 * ``TrainLoader``: three train batches, one across the epoch wrap, and a
-  val batch equal entry for entry to the JAX loader's with
-  ``native_sampler=False`` and the same seed (Sub-GC and the Sup. model);
+  val batch equal entry for entry to the JAX loader's, both with
+  ``native_sampler=False`` (the Python sampler; the C++ sampler's defaults
+  are ``test_torch_port_native.py``'s) and the same seed (Sub-GC and the
+  Sup. model);
 * checkpoints load both ways (params and state exactly equal), a JAX
   ``optimizer.npz`` is not loaded (moments restart, with a warning), and
   ``optimistic_restore`` with ``word_mapping`` equals the JAX package's;
@@ -67,7 +69,7 @@ def test_train_loader_batches_equal_jax(data, gt):
     jl = JTrainLoader(JC.ModelConfig(use_gt_subg=gt), JC.TrainConfig(**kw),
                       _dcfg(man, JC.DataConfig), seed=7, native_sampler=False)
     pl = TrainLoader(ModelConfig(use_gt_subg=gt), TrainConfig(**kw),
-                     _dcfg(man, DataConfig), seed=7)
+                     _dcfg(man, DataConfig), seed=7, native_sampler=False)
     assert len(pl.split_ix["train"]) == 6
     wraps = []
     for split in ("train", "train", "train", "val"):
@@ -229,10 +231,50 @@ def test_cli_trains_from_a_jax_checkpoint(data, capsys):
 @pytest.mark.parametrize("flags", [
     ["--n_devices", "4"], ["--n_devices", "2"],
     ["--trace_steps", "1:2"], ["--packed_path", "shards/*.bin"]])
-def test_cli_refuses_unported_flags(tmp_path, flags):
-    with pytest.raises(SystemExit, match="ROADMAP item"):
-        p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),
-                    "--device", "cpu"] + flags)
+def test_cli_refuses_unported_flags(data, tmp_path, flags):
+    """``--n_devices`` > 1 (ROADMAP item 13) stops the CLI.
+    ``--trace_steps`` and ``--packed_path``, refused until they were
+    ported, now train: a trace of steps 1-2 is written, and a run over a
+    packed shard of the dataset logs the npz run's losses."""
+    if flags[0] == "--n_devices":
+        with pytest.raises(SystemExit, match="ROADMAP item"):
+            p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),
+                        "--device", "cpu"] + flags)
+        return
+    _, man = data
+    common = ["Sub_GC_Kar", "--device", "cpu", "--batch_size", "2",
+              "--save_checkpoint_every", "2", "--val_images_use", "2",
+              "--losses_log_every", "1", "--max_iters", "2"] + _dim_flags()
+    if flags[0] == "--packed_path":
+        from subgc_tpu_torch.data import packed as P
+        from subgc_tpu_torch.io.sg_npz import SGDir
+        with open(man["input_json"]) as f:
+            images = json.load(f)["images"]
+        sg, masks = SGDir(man["sg_dir"]), SGDir(man["mask_dir"])
+        spec = P.PackedSpec(feat_dim=man["feat_dim"],
+                            n_obj_cls=man["n_obj_classes"],
+                            n_rel_cls=man["n_rel_classes"], max_subg=16)
+        os.makedirs(tmp_path / "shards")
+        P.write_shard(str(tmp_path / "shards" / "a.bin"), spec,
+                      [P.pack_image(spec, im["id"], sg.get(im["id"]),
+                                    masks.get(im["id"])) for im in images])
+        flags = ["--packed_path", str(tmp_path / "shards" / "*.bin")]
+        on_flags = _data_flags(man)[:4] + _data_flags(man)[8:] + flags
+    else:
+        on_flags = _data_flags(man) + flags
+    runs = {}
+    for name, extra in (("on", on_flags), ("off", _data_flags(man))):
+        out = str(tmp_path / name)
+        assert p_cli.main(common + extra + ["--checkpoint_path", out]) == \
+            {"iter": 2, "epoch": 0}
+        with open(os.path.join(out, "histories.json")) as f:
+            runs[name] = json.load(f)["loss_history"]
+    if flags[0] == "--trace_steps":
+        assert os.path.getsize(tmp_path / "on" / "trace" / "trace.json") > 0
+    assert sorted(runs["on"]) == sorted(runs["off"]) == ["1", "2"]
+    np.testing.assert_allclose([runs["on"][k] for k in ("1", "2")],
+                               [runs["off"][k] for k in ("1", "2")],
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("mode", ["scst", "sgd"])
