@@ -43,9 +43,12 @@ JAX server's float32 answers.  The non-default dtype's handle is built on
 its first request.  The server pins the matmul numerics (TF32 off, bf16
 sums in float32) once for the process, since its threads dispatch
 concurrently (``device.pin_matmul_numerics``).  ``--replicas N`` places a
-copy of each model on ``cuda:0..N-1``, routed least-loaded.
-``--shard_fanout`` (one model's fan-out sharded over several cards) is not
-ported (ROADMAP item 13).
+copy of each model on ``cuda:0..N-1``, routed least-loaded (throughput).
+``--shard_fanout N`` instead gives one model a copy on each of ``cuda:0..
+N-1`` and splits every dispatch's sub-graph rows over them, one thread per
+card (``eval/runner.py``'s sub-graph axis).  It is meant for latency, but
+is slower than one card for now: the threads of a host-bound decode share
+one interpreter lock (``PERF.md``).  The two exclude each other.
 """
 from __future__ import annotations
 
@@ -142,8 +145,8 @@ def _place(tree, device):
 
 def build_service(params, state, mcfg, ecfg, vocab, batch_images: int = 8,
                   microbatch_wait_ms: float = 3.0,
-                  adaptive_wait: bool = False, device="cuda",
-                  max_queue: int = 0):
+                  adaptive_wait: bool = False, device=None,
+                  max_queue: int = 0, mesh=None):
     """Returns handle(images_payload) -> results list.
 
     Concurrent requests coalesce into shared dispatches via MicroBatcher;
@@ -151,6 +154,12 @@ def build_service(params, state, mcfg, ecfg, vocab, batch_images: int = 8,
     last, through ``eval/runner.py::make_batched_infer_fn`` on ``device``
     (the card unless the caller asks for the CPU; no fallback).  ``params``
     and ``state`` are numpy or tensor trees, placed on ``device`` once.
+
+    mesh (a ``parallel.mesh.Mesh``; exclusive with ``device``): one model
+    copy per mesh device (``params``/``state`` may come as that list
+    already), each dispatch's fan-out rows sharded over the mesh (the
+    latency scale-out, complementary to replicas).
+
     handle.batcher (dispatch counters), handle.latency (/stats) and
     handle.to_example (a request image -> the padded (graph, subs) pair a
     dispatch stacks) are exposed for observability."""
@@ -164,10 +173,18 @@ def build_service(params, state, mcfg, ecfg, vocab, batch_images: int = 8,
     from ..utils.microbatch import MicroBatcher
     from ..utils.text import decode_sequence
 
-    dev = resolve_device(device)
+    if device is not None and mesh is not None:
+        raise ValueError("device and mesh are mutually exclusive")
     pin_matmul_numerics()
-    infer = make_batched_infer_fn(mcfg, ecfg)
-    params, state = _place(params, dev), _place(state, dev)
+    infer = make_batched_infer_fn(mcfg, ecfg, mesh=mesh)
+    if mesh is None:
+        dev = resolve_device(device or "cuda")
+        params, state = _place(params, dev), _place(state, dev)
+    else:
+        dev = resolve_device(mesh.devices[0])
+        if not isinstance(params, list):
+            params = [_place(params, d) for d in mesh.devices]
+            state = [_place(state, d) for d in mesh.devices]
     bucket = ecfg.max_subgraph_bucket
 
     def to_example(img):
@@ -304,13 +321,17 @@ class ModelService:
     devices: one service replica per ``torch.device`` (params copied to
     each), requests routed least-loaded; None serves one replica on
     ``device`` (the card unless the caller asks for the CPU).
+
+    mesh: a ``parallel.mesh.Mesh`` - one model copy per mesh device, each
+    dispatch's sub-graph fan-out rows sharded across the mesh (latency
+    scale-out); exclusive with ``devices`` and with ``device``.
     """
 
     def __init__(self, params, state, mcfg, ecfg, vocab,
                  default_dtype: str = "bfloat16", batch_images: int = 8,
                  microbatch_wait_ms: float = 3.0,
-                 adaptive_wait: bool = False, devices=None, device="cuda",
-                 max_queue: int = 0):
+                 adaptive_wait: bool = False, devices=None, device=None,
+                 max_queue: int = 0, mesh=None):
         import torch
 
         from ..device import resolve_device
@@ -318,6 +339,12 @@ class ModelService:
             raise ValueError(f"default_dtype must be one of {_DTYPES}")
         if devices is not None and len(devices) == 0:
             raise ValueError("devices must be None or non-empty")
+        if devices is not None and mesh is not None:
+            raise ValueError("devices (replicas) and mesh (fan-out "
+                             "sharding) are mutually exclusive")
+        if device is not None and mesh is not None:
+            raise ValueError("device and mesh are mutually exclusive")
+        self.mesh = mesh
         self.params, self.state, self.vocab = params, state, vocab
         # base config with dtype fields neutralized; variants derive from it
         self.mcfg = mcfg.replace(compute_dtype="float32",
@@ -326,7 +353,9 @@ class ModelService:
         self.default_dtype = default_dtype
         self.devices = ([torch.device(d) for d in devices]
                         if devices is not None else None)
-        self._targets = self.devices or [resolve_device(device)]
+        self._targets = (self.devices or
+                         [resolve_device(mesh.devices[0] if mesh is not None
+                                         else device or "cuda")])
         self._kw = dict(batch_images=batch_images,
                         microbatch_wait_ms=microbatch_wait_ms,
                         adaptive_wait=adaptive_wait, max_queue=max_queue)
@@ -354,6 +383,13 @@ class ModelService:
                     compute_dtype=dtype,
                     bf16_lstm_gates=dtype == "bfloat16",
                     share_att_images=dtype == "bfloat16")
+                if self.mesh is not None:
+                    placed = [self._params_on(d) for d in self.mesh.devices]
+                    self._handles[dtype] = build_service(
+                        [p for p, _ in placed], [s for _, s in placed],
+                        mcfg, self.ecfg, self.vocab, mesh=self.mesh,
+                        **self._kw)
+                    return self._handles[dtype]
                 handles = [build_service(*self._params_on(d), mcfg,
                                          self.ecfg, self.vocab, device=d,
                                          **self._kw)
@@ -393,7 +429,7 @@ class ModelService:
                 "bucket": self.ecfg.max_subgraph_bucket,
                 "vocab_size": self.mcfg.vocab_size,
                 "replicas": len(self.devices) if self.devices else 1,
-                "fanout_devices": 1}
+                "fanout_devices": self.mesh.size if self.mesh else 1}
 
     def stats(self) -> dict:
         """Per-dtype serving counters for GET /stats: request/image counts,
@@ -596,25 +632,39 @@ def load_registry(args) -> ModelRegistry:
     """Build the ModelRegistry from parsed CLI args: one ModelService per
     --checkpoint_path spec, configs from each checkpoint's infos.json
     (checkpoint-authoritative, like cli/test.py), params from its
-    model.npz (either package's), optional replicas on cuda:0..N-1."""
+    model.npz (either package's), optional replicas on cuda:0..N-1 or a
+    --shard_fanout mesh over cuda:0..N-1 (on --device cpu, N entries of
+    the CPU)."""
     import torch
 
     from ..config import ModelConfig, build_configs, config_from_json
     from ..models.params import load_model_npz
+    from ..parallel.mesh import make_mesh
 
-    if getattr(args, "shard_fanout", 1) > 1:
-        raise SystemExit("--shard_fanout is not ported to subgc_tpu_torch "
-                         "yet (ROADMAP item 13 (parallelism)); serve "
-                         "several cards with --replicas")
     device = getattr(args, "device", "cuda")
+    on_card = torch.device(device).type == "cuda"
     devices = None
     if args.replicas > 1:
-        avail = (torch.cuda.device_count()
-                 if torch.device(device).type == "cuda" else 1)
+        avail = torch.cuda.device_count() if on_card else 1
         if args.replicas > avail:
             raise SystemExit(f"--replicas {args.replicas} > {avail} "
                              f"attached devices")
         devices = [torch.device("cuda", i) for i in range(args.replicas)]
+    mesh = None
+    fanout = getattr(args, "shard_fanout", 1)
+    if fanout > 1:
+        if devices is not None:
+            raise SystemExit("--shard_fanout and --replicas > 1 are "
+                             "mutually exclusive (latency vs throughput "
+                             "scale-out)")
+        if on_card:
+            avail = torch.cuda.device_count()
+            if fanout > avail:
+                raise SystemExit(f"--shard_fanout {fanout} > {avail} "
+                                 f"attached devices")
+            mesh = make_mesh(n_data=fanout)
+        else:
+            mesh = make_mesh(devices=[device] * fanout)
 
     registry = ModelRegistry()
     for spec in args.checkpoint_path:
@@ -634,7 +684,8 @@ def load_registry(args) -> ModelRegistry:
             batch_images=args.batch_images,
             microbatch_wait_ms=args.microbatch_wait_ms,
             adaptive_wait=args.adaptive_wait, devices=devices,
-            device=device, max_queue=getattr(args, "max_queue", 0)))
+            device=None if mesh is not None else device,
+            max_queue=getattr(args, "max_queue", 0), mesh=mesh))
     return registry
 
 
@@ -663,7 +714,10 @@ def parse_args(argv=None):
                    help="serve N copies of each model, one per card "
                         "(cuda:0..N-1), requests routed least-loaded")
     p.add_argument("--shard_fanout", type=int, default=1,
-                   help="> 1 not ported yet (ROADMAP item 13)")
+                   help="shard each dispatch's sub-graph fan-out over N "
+                        "cards, one thread per card (slower than one card "
+                        "until a process per card lands); exclusive with "
+                        "--replicas")
     p.add_argument("--max_queue", type=int, default=256,
                    help="overload protection: per-model-queue cap on queued"
                         " + in-flight images; a request that would exceed "

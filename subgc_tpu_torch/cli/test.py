@@ -20,11 +20,16 @@ loss.
 beams each (``--diversity_lambda``); ``--packed_path`` reads packed shards
 (a path, a glob or a comma list) in place of ``--sg_dir`` / ``--mask_dir``.
 
-Flags whose code the port does not have yet stop with a message naming the
-ROADMAP item: ``--n_devices`` > 1 and ``--shard_subgraphs`` (parallelism).
-Full_GC_Kar has no batched route (nor in the JAX
-CLI), so ``run_test_split`` refuses it: decode it with
-``models.subgc.encode_image`` + ``beam_search``.
+``--n_devices N`` decodes over N cards (``cuda:0..N-1``) from one
+process, one thread per card: each card takes ``batch_images / N`` images
+of every dispatch, or with ``--shard_subgraphs`` a contiguous share of the
+dispatch's flat sub-graph rows (a single keep-1000 image spreads over the
+cards); the captions are the one-card run's.  It is slower than one card
+on every path measured (the threads of a host-bound decode share one
+interpreter lock; ``PERF.md``) until a process per card decodes its shard.
+On ``--device cpu`` the N entries are all the CPU.  Full_GC_Kar has no
+batched route (nor in the JAX CLI), so ``run_test_split`` refuses it:
+decode it with ``models.subgc.encode_image`` + ``beam_search``.
 """
 from __future__ import annotations
 
@@ -47,9 +52,12 @@ def parse_args(argv=None):
     p.add_argument("--num_images", type=int, default=-1)
     p.add_argument("--batch_images", type=int, default=16)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="not ported yet (ROADMAP item 13)")
+                   help="decode over N cards (cuda:0..N-1) from one "
+                        "process, one thread per card: slower than one "
+                        "card until a process per card lands")
     p.add_argument("--shard_subgraphs", action="store_true",
-                   help="not ported yet (ROADMAP item 13)")
+                   help="with --n_devices > 1: shard the flat sub-graph "
+                        "rows over the cards instead of the images")
     p.add_argument("--bucket", type=int, default=None,
                    help="static sub-graph bucket (default: preset)")
     p.add_argument("--beam_size", type=int, default=None)
@@ -102,16 +110,32 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args):
-    refused = [
-        (args.n_devices is not None and args.n_devices > 1, "--n_devices",
-         "13 (parallelism)"),
-        (args.shard_subgraphs, "--shard_subgraphs", "13 (parallelism)"),
-    ]
-    for on, flag, item in refused:
-        if on:
-            raise SystemExit(f"{flag} is not ported to subgc_tpu_torch yet "
-                             f"(ROADMAP item {item})")
+def _mesh(args):
+    """The ``--n_devices`` mesh, or None, with the JAX CLI's checks and
+    messages (``subgc_tpu/cli/test.py``)."""
+    import torch
+
+    from ..parallel.mesh import make_mesh
+    many = args.n_devices is not None and args.n_devices > 1
+    if args.shard_subgraphs and not many:
+        raise SystemExit("--shard_subgraphs requires --n_devices > 1 "
+                         "(it picks WHICH axis shards over the mesh)")
+    if not many:
+        return None
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card:
+        avail = torch.cuda.device_count()
+        if args.n_devices > avail:
+            raise SystemExit(f"--n_devices {args.n_devices} > {avail} "
+                             f"attached devices")
+    if not args.shard_subgraphs and args.batch_images % args.n_devices:
+        raise SystemExit(f"--batch_images {args.batch_images} must "
+                         f"be divisible by --n_devices "
+                         f"{args.n_devices} (or use "
+                         f"--shard_subgraphs)")
+    if on_card:
+        return make_mesh(n_data=args.n_devices)
+    return make_mesh(devices=[args.device] * args.n_devices)
 
 
 def _load_npy_dict(path):
@@ -151,7 +175,7 @@ def _lm_loss(params, state, mcfg, dcfg, args, dev):
     return tot / nb, nb
 
 
-def _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag):
+def _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag, mesh=None):
     """Decode the split and save its captions file; write the grounding /
     vis artifacts and print the LM loss where the flags ask for them.
     Returns (captions path, predictions)."""
@@ -179,11 +203,12 @@ def _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag):
     preds, wall, n_caps = run_test_split(
         params, state, loader, mcfg, ecfg, loader.vocab, split=args.split,
         num_images=args.num_images, batch_images=args.batch_images,
-        device=dev, collect_grounding=collector)
+        device=dev, collect_grounding=collector, mesh=mesh,
+        shard_axis="subgraph" if args.shard_subgraphs else "image")
     path = save_predictions(preds, args.checkpoint_path, iter_tag,
                             sct=ecfg.sct)
     print(f"decoded {n_caps} captions for {len(preds)} images in "
-          f"{wall:.1f}s on {dev} -> {path}")
+          f"{wall:.1f}s on {list(mesh.devices) if mesh else dev} -> {path}")
     if collector is not None:
         gpath = os.path.join(args.checkpoint_path, "grounding_file.json")
         collector.save(gpath)
@@ -217,7 +242,6 @@ def _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag):
 @f32_accumulation()          # bf16 matmuls sum in float32, as in JAX
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
 
     from ..config import ModelConfig, build_configs, config_from_json
     from ..data.dataset import EvalLoader
@@ -257,6 +281,7 @@ def main(argv=None):
             dcfg = dcfg.replace(**{k: getattr(args, k)})
     # re-scoring a saved captions file runs nothing on a device
     dev = None if ecfg.only_sent_eval else resolve_device(args.device)
+    mesh = None if ecfg.only_sent_eval else _mesh(args)
 
     bucket = args.bucket or ecfg.max_subgraph_bucket
     if ecfg.sct:
@@ -273,7 +298,8 @@ def main(argv=None):
     iter_tag = args.iter_tag or str(infos.get("iter", "0"))
 
     if not ecfg.only_sent_eval:
-        path, preds = _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag)
+        path, preds = _decode(args, mcfg, ecfg, dcfg, loader, dev, iter_tag,
+                              mesh)
     else:
         path = os.path.join(args.checkpoint_path,
                             f"captions_{iter_tag}.npy")

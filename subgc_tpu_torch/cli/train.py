@@ -31,14 +31,27 @@ packed shards (a path, a glob or a comma list) in place of ``--sg_dir`` /
 Adam state, bf16 matmuls summing in float32; the checkpoint's
 ``model_config`` records it, so ``cli/test.py`` decodes it in bf16.
 
-``--n_devices`` > 1 stops with a message naming its ROADMAP item (13,
-parallelism).
+``--n_devices N`` trains data-parallel, one process per card over
+``torch.distributed`` (NCCL on the cards, gloo on ``--device cpu``): by
+default every attached card (on the CPU, 1), shrunk until it divides
+``batch_size``, as in the JAX CLI.  With N > 1 and no process group yet
+the CLI spawns N ranks on ``cuda:0..N-1`` (``parallel/launch.py``); a
+process started by ``torchrun`` (with ``SUBGC_AUTO_DISTRIBUTED=1``) or with
+``SUBGC_COORDINATOR`` / ``SUBGC_NUM_PROCESSES`` / ``SUBGC_PROCESS_ID`` set
+joins that group instead (``parallel/distributed.py``).  Every rank
+assembles the same global batch from the same seed and keeps its slice
+(``train.step.local_train_batch``); the step is the global batch's
+(``train/step.py``).  Rank 0 alone writes checkpoints, histories, metrics
+and traces; the other ranks wait for it.  ``--start_from`` loads on every
+rank.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
+import sys
 import threading
 import time
 
@@ -88,7 +101,9 @@ def parse_args(argv=None):
     p.add_argument("--obj_name_path", type=str, default=None)
     p.add_argument("--rel_name_path", type=str, default=None)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="> 1 not ported yet (ROADMAP item 13)")
+                   help="data-parallel ranks, one per card (default: every "
+                        "attached card, 1 on the CPU, shrunk until it "
+                        "divides batch_size)")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["float32", "bfloat16"],
                    help="matmul compute dtype (params and optimizer stay "
@@ -119,15 +134,24 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args):
-    refused = [
-        (args.n_devices is not None and args.n_devices > 1, "--n_devices",
-         "13 (parallelism)"),
-    ]
-    for on, flag, item in refused:
-        if on:
-            raise SystemExit(f"{flag} is not ported to subgc_tpu_torch yet "
-                             f"(ROADMAP item {item})")
+def _n_devices(args, dev, batch_size: int) -> int:
+    """The data-parallel rank count: ``--n_devices``, by default every
+    attached card (1 on the CPU), shrunk until it divides the batch (the
+    JAX CLI's rule)."""
+    import torch
+    avail = torch.cuda.device_count() if dev.type == "cuda" else None
+    n = args.n_devices or (avail or 1)
+    if avail is not None and n > avail:
+        raise SystemExit(f"--n_devices {n} > {avail} attached devices")
+    while n > 1 and batch_size % n:
+        n -= 1          # the data axis must divide the batch
+    return n
+
+
+def _rank_main(rank, world, device, startup, argv):
+    """A spawned rank: the CLI again, inside the process group, on its
+    device."""
+    main(list(argv) + ["--device", str(device)])
 
 
 def _overrides(args):
@@ -156,9 +180,9 @@ def _overrides(args):
 @f32_accumulation()          # bf16 matmuls sum in float32, as in JAX
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
 
     import torch
+    import torch.distributed as dist
 
     from ..config import build_configs, config_to_json
     from ..data.dataset import TrainLoader
@@ -166,16 +190,47 @@ def main(argv=None):
     from ..device import resolve_device
     from ..io.glove import class_embeddings
     from ..models.params import init_params_numpy, params_from_numpy
+    from ..parallel import distributed as DP
+    from ..parallel import launch
     from ..train import checkpoint as C
     from ..train.optim import OptState, ss_prob
     from ..train.step import (batch_to_device, init_train_state,
-                              make_train_step, make_val_step)
+                              local_train_batch, make_train_step,
+                              make_val_step)
     from ..utils.logging import MetricsLogger
     from ..utils.profiling import PhaseTimers, device_trace
 
     dev = resolve_device(args.device)
     mcfg, tcfg, dcfg = build_configs(args.model_type, mode="train",
                                      **_overrides(args))
+    joined = DP.maybe_initialize_distributed()
+    if joined:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if args.n_devices and args.n_devices != world:
+            raise SystemExit(f"--n_devices {args.n_devices} in a process "
+                             f"group of {world}")
+        if tcfg.batch_size % world:
+            raise SystemExit(f"--batch_size {tcfg.batch_size} must be "
+                             f"divisible by the {world} ranks")
+        if dev.type == "cuda" and dev.index is None:
+            dev = DP.rank_device("cuda")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+    else:
+        world, rank = _n_devices(args, dev, tcfg.batch_size), 0
+        if world > 1:
+            argv = list(sys.argv[1:] if argv is None else argv)
+            devices = ([torch.device("cuda", i) for i in range(world)]
+                       if dev.type == "cuda" else [dev] * world)
+            launch.spawn(_rank_main, world, devices,
+                         args=(argv + ["--n_devices", str(world)],))
+            with open(os.path.join(args.checkpoint_path,
+                                   "infos.json")) as f:
+                infos = json.load(f)
+            return {"iter": infos["iter"], "epoch": infos["epoch"]}
+    group = dist.group.WORLD if world > 1 else None
+    lead = rank == 0            # writes checkpoints, logs and traces
+    log = print if lead else (lambda *a, **k: None)
     loader = TrainLoader(mcfg, tcfg, dcfg, seed=args.seed)
     mcfg = mcfg.replace(vocab_size=loader.vocab_size,
                         seq_length=loader.seq_length)
@@ -202,7 +257,7 @@ def main(argv=None):
             and os.path.exists(os.path.join(args.checkpoint_path,
                                             "model.npz"))):
         args.start_from = args.checkpoint_path
-        print(f"auto-resuming from {args.checkpoint_path}")
+        log(f"auto-resuming from {args.checkpoint_path}")
     if args.start_from:
         p2, s2, opt_np, infos, histories2 = C.load_checkpoint(
             args.start_from, params_template=params_np, optim=tcfg.optim)
@@ -227,16 +282,19 @@ def main(argv=None):
     # the ss-inactive step hoists the word-embedding gate products out of
     # the step loop; a run that never reaches scheduled sampling uses only
     # that one
-    step_ss = make_train_step(mcfg, tcfg)
-    step_hoisted = make_train_step(mcfg, tcfg, ss_active=False)
-    val_step = make_val_step(mcfg)
+    step_ss = make_train_step(mcfg, tcfg, group=group)
+    step_hoisted = make_train_step(mcfg, tcfg, ss_active=False, group=group)
+    val_step = make_val_step(mcfg, group)
     scst_fns = None
     if args.self_critical_after >= 0:
         from ..train.scst import (make_sample_fn, make_scst_update_fn,
                                   scst_train_step)
-        scst_fns = (make_sample_fn(mcfg), make_scst_update_fn(mcfg, tcfg))
+        scst_fns = (make_sample_fn(mcfg, group),
+                    make_scst_update_fn(mcfg, tcfg, group))
+    # one seed on every rank: the draws are the global batch's
     generator = torch.Generator(device=dev).manual_seed(args.seed)
-    os.makedirs(args.checkpoint_path, exist_ok=True)
+    if lead:
+        os.makedirs(args.checkpoint_path, exist_ok=True)
     infos_base = {
         "model_config": config_to_json(mcfg),
         "train_config": config_to_json(tcfg),
@@ -245,16 +303,22 @@ def main(argv=None):
         "vocab": loader.vocab,
     }
 
-    def save(suffix=""):
-        infos = dict(infos_base, iter=iteration, epoch=epoch)
-        C.save_checkpoint(args.checkpoint_path, ts.params, ts.model_state,
-                          ts.opt_state, infos, histories, suffix=suffix)
-        print(f"checkpoint saved to {args.checkpoint_path}{suffix or ''} "
-              f"at iter {iteration}")
+    def save(suffix="", wait=True):
+        # every rank holds the same params; rank 0 writes them
+        if lead:
+            infos = dict(infos_base, iter=iteration, epoch=epoch)
+            C.save_checkpoint(args.checkpoint_path, ts.params,
+                              ts.model_state, ts.opt_state, infos, histories,
+                              suffix=suffix)
+            print(f"checkpoint saved to {args.checkpoint_path}"
+                  f"{suffix or ''} at iter {iteration}")
+        if group is not None and wait:
+            dist.barrier(group)
 
-    print(f"training {args.model_type}: vocab {mcfg.vocab_size}, "
-          f"{len(loader.split_ix['train'])} train images, "
-          f"batch {tcfg.batch_size}, {mcfg.compute_dtype}, device {dev}")
+    log(f"training {args.model_type}: vocab {mcfg.vocab_size}, "
+        f"{len(loader.split_ix['train'])} train images, "
+        f"batch {tcfg.batch_size}, {mcfg.compute_dtype}, device {dev}"
+        + (f", rank 0 of {world}" if group is not None else ""))
     timers = PhaseTimers()
     loader_lock = threading.Lock()   # val batches share the loader state
 
@@ -262,14 +326,16 @@ def main(argv=None):
         with loader_lock:
             return loader.get_batch("train")
 
-    prefetch = BatchPrefetcher(
-        _next_train, depth=2, device=dev,
-        place=lambda b: batch_to_device(b, dev,
-                                        non_blocking=dev.type == "cuda"))
-    metrics_log = MetricsLogger(args.checkpoint_path)
+    def place(b):
+        # every rank assembles the global batch and keeps its slice
+        return batch_to_device(local_train_batch(b, rank, world), dev,
+                               non_blocking=dev.type == "cuda")
+
+    prefetch = BatchPrefetcher(_next_train, depth=2, device=dev, place=place)
+    metrics_log = MetricsLogger(args.checkpoint_path) if lead else None
     trace_dir = os.path.join(args.checkpoint_path, "trace")
     trace_start = trace_stop = -1
-    if args.trace_steps:
+    if args.trace_steps and lead:
         a, b = args.trace_steps.split(":")
         trace_start, trace_stop = int(a), int(a) + int(b)
     trace = contextlib.ExitStack()
@@ -284,20 +350,21 @@ def main(argv=None):
                 batch, (infos_b, wrapped) = prefetch.next()
             if scst_fns is not None and epoch >= args.self_critical_after:
                 # each sentence is scored against its image's GT captions
+                # (the global batch's, on every rank)
                 gts_tokens = [loader.ds.captions_for(info.ix)
                               for info in infos_b
                               for _ in range(tcfg.seq_per_img)]
                 with timers.phase("scst_step"):
                     ts, scst_loss, mean_reward = scst_train_step(
                         ts, batch, gts_tokens, loader.vocab, *scst_fns,
-                        generator, epoch)
+                        generator, epoch, group)
                 zero = torch.zeros((), device=dev)
                 metrics = {"loss": torch.tensor(scst_loss),
                            "lang_loss": torch.tensor(scst_loss),
                            "gpn_loss": zero, "lr": zero, "grad_norm": zero}
                 if iteration % 5 == 0:
-                    print(f"scst iter {iteration}: loss {scst_loss:.4f} "
-                          f"mean reward {mean_reward:.4f}")
+                    log(f"scst iter {iteration}: loss {scst_loss:.4f} "
+                        f"mean reward {mean_reward:.4f}")
             else:
                 step = step_hoisted if sp == 0.0 else step_ss
                 with timers.phase("step"):
@@ -306,8 +373,8 @@ def main(argv=None):
             n_steps += 1
             if iteration == trace_stop:
                 trace.close()
-                print(f"device trace ({trace_start}:{trace_stop}) -> "
-                      f"{trace_dir}")
+                log(f"device trace ({trace_start}:{trace_stop}) -> "
+                    f"{trace_dir}")
 
             if iteration % tcfg.losses_log_every == 0 or iteration % 5 == 0:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -315,16 +382,17 @@ def main(argv=None):
                 histories["loss_history"][str(iteration)] = m["loss"]
                 histories["lr_history"][str(iteration)] = m["lr"]
                 histories["ss_prob_history"][str(iteration)] = sp
-                metrics_log.log(iteration, {
-                    "train_loss": m["loss"], "gpn_loss": m["gpn_loss"],
-                    "lang_loss": m["lang_loss"], "learning_rate": m["lr"],
-                    "scheduled_sampling_prob": sp,
-                    "grad_norm": m["grad_norm"]})
+                if lead:
+                    metrics_log.log(iteration, {
+                        "train_loss": m["loss"], "gpn_loss": m["gpn_loss"],
+                        "lang_loss": m["lang_loss"], "learning_rate": m["lr"],
+                        "scheduled_sampling_prob": sp,
+                        "grad_norm": m["grad_norm"]})
             if iteration % 5 == 0:
-                print(f"iter {iteration} (ep {epoch}): gpn "
-                      f"{m['gpn_loss']:.3f} lang {m['lang_loss']:.3f} loss "
-                      f"{m['loss']:.3f} lr {m['lr']:.2e} "
-                      f"({(time.time() - t_start) / n_steps:.3f}s/it)")
+                log(f"iter {iteration} (ep {epoch}): gpn "
+                    f"{m['gpn_loss']:.3f} lang {m['lang_loss']:.3f} loss "
+                    f"{m['loss']:.3f} lr {m['lr']:.2e} "
+                    f"({(time.time() - t_start) / n_steps:.3f}s/it)")
             if wrapped:
                 epoch += 1
 
@@ -338,6 +406,7 @@ def main(argv=None):
                 for _ in range(max(1, min(2, max_val))):
                     with loader_lock:
                         vb, _, vw = loader.get_batch("val")
+                    vb = local_train_batch(vb, rank, world)
                     vloss += float(val_step(ts.params, ts.model_state,
                                             batch_to_device(vb, dev)))
                     nval += 1
@@ -345,8 +414,10 @@ def main(argv=None):
                         break
                 histories["val_loss_history"][str(iteration)] = \
                     vloss / max(nval, 1)
-                metrics_log.log(iteration, {"val_loss": vloss / max(nval, 1)})
-                print(f"val loss {vloss / max(nval, 1):.3f}")
+                if lead:
+                    metrics_log.log(iteration,
+                                    {"val_loss": vloss / max(nval, 1)})
+                log(f"val loss {vloss / max(nval, 1):.3f}")
                 save()
                 if args.save_history_ckpt:
                     save(suffix=f"-{iteration}")
@@ -356,21 +427,22 @@ def main(argv=None):
         # emergency checkpoint on interruption (the reference just prints a
         # traceback and exits, train.py:233-235)
         print(f"interrupted at iter {iteration}; saving emergency checkpoint")
-        save(suffix="_crash")
+        save(suffix="_crash", wait=False)
         raise SystemExit(1)
     except Exception:
         import traceback
         traceback.print_exc()
         print(f"training failed at iter {iteration}; saving emergency "
               f"checkpoint")
-        save(suffix="_crash")
+        save(suffix="_crash", wait=False)
         raise
     finally:
         prefetch.stop()
         trace.close()
-        metrics_log.close()
-    print(timers.report())
-    print(f"done at iter {iteration}, epoch {epoch}")
+        if metrics_log is not None:
+            metrics_log.close()
+    log(timers.report())
+    log(f"done at iter {iteration}, epoch {epoch}")
     return {"iter": iteration, "epoch": epoch}
 
 

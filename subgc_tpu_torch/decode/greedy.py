@@ -57,14 +57,19 @@ class SampleOut(NamedTuple):
 @torch.no_grad()
 def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
            ecfg: EvalConfig,
-           generator: Optional[torch.Generator] = None) -> SampleOut:
+           generator: Optional[torch.Generator] = None,
+           rows=None) -> SampleOut:
     """Greedy (or top-k) decode of every row of ``feats`` at once.
 
     Both per-row attention layouts run: the image-shared fan-out when
     ``feats.att_img`` is set, the per-row streams otherwise (attention
     capture).  ``generator`` feeds the top-k draws; without one, a generator
-    seeded with 0 on the tensors' device is used.  Runs without autograd,
-    so params that require grad decode as their detached copies do.
+    seeded with 0 on the tensors' device is used.  ``rows=(offset,
+    total)``: these rows are rows ``offset ..`` of a ``total``-row decode
+    (a shard of a sharded decode), whose draws they take
+    (``decoder.draw_categorical``), so that the sampled tokens do not
+    depend on the shard count.  Runs without autograd, so params that
+    require grad decode as their detached copies do.
     """
     params = D.cast_decoder_weights(params, cfg)     # once per call
     S = feats.fc.shape[0]
@@ -83,7 +88,8 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
         lp, state, att_w = D.decode_step(params, state, it, feats, cfg)
         if ecfg.use_topk_sampling:
             lp2 = torch.log_softmax(lp / ecfg.topk_temp, dim=-1)
-            nxt = D.draw_categorical(_topk_mask(lp2, ecfg.the_k), generator)
+            nxt = D.draw_categorical(_topk_mask(lp2, ecfg.the_k), generator,
+                                     rows)
             chosen = torch.gather(lp2, 1, nxt[:, None])[:, 0]
         else:
             nxt = torch.argmax(lp, dim=-1)

@@ -12,12 +12,29 @@ predictions in the reference's format:
 
 (``ctl_captions_<iter>.npy`` under SCT).  Under ``return_att`` the greedy
 decode's attention weights go to a ``collect_grounding`` callback
-(``eval/grounding.py::GroundingCollector``).  Mesh sharding is not ported
-yet.
+(``eval/grounding.py::GroundingCollector``).
+
+Sharding over a device mesh (``parallel/mesh.py``) runs in this process,
+one thread per mesh device, as the JAX package's single-process mesh runs:
+
+* ``shard_axis="image"``: each device encodes and decodes ``batch_images /
+  n`` images of every dispatch;
+* ``shard_axis="subgraph"``: the first device encodes the dispatch and runs
+  the NMS once (the JAX program runs that part redundantly on every
+  device, with the same result), then the flat ``[B*Smax]`` decode rows
+  split into contiguous chunks, one per device, so that one image's
+  keep-1000 fan-out spreads over the devices.
+
+The outputs equal the unsharded run's: the top-k draws are the unsharded
+row shape's, cut to each shard's rows.  In-process sharding is slower than
+one card on every path measured (``PERF.md``): the decode is host-bound,
+and the threads share one interpreter lock.  It stays so until a process
+per card decodes its shard.
 """
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import List
 
@@ -30,34 +47,148 @@ from ..decode import greedy as greedy_mod
 from ..device import f32_accumulation, resolve_device
 from ..graph import SceneGraph, SubgraphSet, to_device
 from ..models import subgc
+from ..parallel import mesh as M
 from ..utils.text import decode_sequence
 
 
-def make_batched_infer_fn(cfg: ModelConfig, ecfg: EvalConfig):
+def _decode(params, feats, cfg: ModelConfig, ecfg: EvalConfig,
+            generator=None, rows=None):
+    """Beam search, or greedy / top-k at ``beam_size`` 1, of every row of
+    ``feats``: a dict of [S, ...] tensors.  ``rows=(offset, total)``: the
+    top-k draws are those of rows ``offset ..`` of a ``total``-row
+    decode."""
+    if ecfg.beam_size > 1:
+        out = beam_mod.beam_search(params, feats, cfg, ecfg)
+        res = dict(seq=out.seq, logprobs=out.logprobs)
+        if ecfg.verbose_beam:
+            res["all_beams"] = out.all_seqs
+        return res
+    out = greedy_mod.sample(params, feats, cfg, ecfg, generator, rows=rows)
+    res = dict(seq=out.seq, logprobs=out.logprobs)
+    if ecfg.return_att:
+        res["att_weights"] = out.att_weights
+    return res
+
+
+def _fork(generator, device):
+    """A generator on ``device`` in ``generator``'s state (or None)."""
+    if generator is None:
+        return None
+    g = torch.Generator(device=device)
+    g.set_state(generator.get_state())
+    return g
+
+
+def _run_on_devices(devices, jobs):
+    """Run ``jobs[i]()`` on ``devices[i]``, each from a thread of its own
+    with that card current (a device listed twice takes both jobs in
+    turn, on its one stream).  Returns the results in order; raises the
+    first failure."""
+    out = [None] * len(jobs)
+    errors = []
+
+    def work(i):
+        try:
+            dev = torch.device(devices[i])
+            if dev.type == "cuda":
+                with torch.cuda.device(dev), torch.no_grad():
+                    out[i] = jobs[i]()
+            else:
+                with torch.no_grad():
+                    out[i] = jobs[i]()
+        except Exception as e:          # re-raised below, on the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _decode_sharded(params, feats, mesh, cfg, ecfg, generator):
+    """Sub-graph-axis decode: ``feats`` rows (on the first mesh device)
+    split into one contiguous chunk per device; the row-leading fields
+    are chunked, the per-image streams ``att_img``/``p_att_img``
+    replicated, so each row's image gather stays on its device (the JAX
+    runner's sharding constraints, ``subgc_tpu/eval/runner.py:80-97``).
+    ``params`` holds one copy per device.  Returns the gathered outputs in
+    row order on the first device."""
+    S = feats.fc.shape[0]
+    rowwise = dict(fc=feats.fc, att=feats.att, p_att=feats.p_att,
+                   mask=feats.mask, fc_ih=feats.fc_ih, img_ix=feats.img_ix)
+    chunks = M.shard_leading_axis(mesh, rowwise)
+    images = M.replicate(mesh, dict(att_img=feats.att_img,
+                                    p_att_img=feats.p_att_img))
+    gens = [_fork(generator, d) for d in mesh.devices]
+    offsets = np.cumsum([0] + [c["fc"].shape[0] for c in chunks])
+    jobs = [lambda k=k: _decode(
+        params[k], feats._replace(**chunks[k], **images[k]), cfg, ecfg,
+        gens[k], rows=(int(offsets[k]), S)) for k in range(mesh.size)]
+    outs = _run_on_devices(mesh.devices, jobs)
+    if generator is not None:
+        # every shard drew the whole row shape: step the split's generator
+        # as the unsharded decode would
+        generator.set_state(gens[0].get_state())
+    return M.gather_leading_axis(outs)
+
+
+def make_batched_infer_fn(cfg: ModelConfig, ecfg: EvalConfig, mesh=None):
     """[B]-image program: graph [B, ...] and subs [B, S, ...] tensors in,
     a dict of [B, Smax, ...] tensors out (seq, logprobs, scores, keep_ind,
     keep_valid; att_weights under ``return_att``; every beam's tokens,
     all_beams, under ``verbose_beam``).  ``generator`` feeds the top-k
-    draws."""
+    draws; ``images=(first, total)`` says that this batch is images
+    ``first ..`` of a ``total``-image dispatch (an image-axis shard), whose
+    draws it takes for its rows.
+
+    ``mesh``: the sub-graph-axis program.  ``params`` and ``state`` are
+    then ``mesh.replicate``'s per-device lists, graph and subs lie on the
+    first device, where the encoder and NMS run once; the decode rows
+    shard over the mesh (:func:`_decode_sharded`)."""
 
     @torch.no_grad()
-    def infer(params, state, graph, subs, generator=None):
-        enc = subgc.encode_images_batched(params, state, graph, subs, cfg,
-                                          ecfg)
-        if ecfg.beam_size > 1:
-            out = beam_mod.beam_search(params, enc.feats, cfg, ecfg)
-        else:
-            out = greedy_mod.sample(params, enc.feats, cfg, ecfg, generator)
-        res = dict(seq=out.seq, logprobs=out.logprobs, scores=enc.scores,
-                   keep_ind=enc.keep_ind, keep_valid=enc.keep_valid)
-        if ecfg.beam_size <= 1 and ecfg.return_att:
-            res["att_weights"] = out.att_weights
-        if ecfg.beam_size > 1 and ecfg.verbose_beam:
-            res["all_beams"] = out.all_seqs
+    def infer(params, state, graph, subs, generator=None, images=None):
+        p0, s0 = (params, state) if mesh is None else (params[0], state[0])
+        enc = subgc.encode_images_batched(p0, s0, graph, subs, cfg, ecfg)
         B = graph.obj_fmap.shape[0]
+        if mesh is None:
+            rows = None
+            if images is not None:
+                K = enc.feats.fc.shape[0] // B      # rows per image
+                rows = (images[0] * K, images[1] * K)
+            res = _decode(p0, enc.feats, cfg, ecfg, generator, rows)
+        else:
+            res = _decode_sharded(params, enc.feats, mesh, cfg, ecfg,
+                                  generator)
+        res.update(scores=enc.scores, keep_ind=enc.keep_ind,
+                   keep_valid=enc.keep_valid)
         return {k: v.reshape((B, -1) + v.shape[1:]) for k, v in res.items()}
 
     return infer
+
+
+def _infer_image_sharded(infer, params, state, graph, subs, mesh,
+                         generator):
+    """Image-axis dispatch: each mesh device runs ``infer`` on its
+    contiguous share of the images (host arrays, placed straight on it);
+    the outputs gathered in image order on the first device."""
+    graphs = M.shard_leading_axis(mesh, to_device(graph, "cpu"))
+    subss = M.shard_leading_axis(mesh, to_device(subs, "cpu"))
+    B = graph.obj_fmap.shape[0]
+    starts = np.cumsum([0] + [g.obj_fmap.shape[0] for g in graphs])
+    gens = [_fork(generator, d) for d in mesh.devices]
+    outs = _run_on_devices(mesh.devices, [
+        lambda k=k: infer(params[k], state[k], graphs[k], subss[k], gens[k],
+                          images=(int(starts[k]), B))
+        for k in range(mesh.size)])
+    if generator is not None:
+        generator.set_state(gens[0].get_state())
+    return M.gather_leading_axis(outs)
 
 
 def _stack_examples(examples):
@@ -73,7 +204,8 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
                    vocab, split: str = "test", num_images: int = -1,
                    verbose: bool = True, batch_images: int = 16,
                    keep_tokens: bool = False, device="cuda",
-                   collect_grounding=None):
+                   collect_grounding=None, mesh=None,
+                   shard_axis: str = "image"):
     """Decode the split on ``device``.  Returns (predictions, wall_seconds,
     n_captions).
 
@@ -90,15 +222,57 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
     Top-k draws come from one generator on ``device`` for the whole split,
     seeded with 2019 as the JAX package's default key is.  bfloat16 matmuls
     sum in float32 throughout (``device.f32_accumulation``).
+
+    mesh: an optional ``parallel.mesh.Mesh``, which takes the place of
+    ``device`` (its first device holds the generator and gathers the
+    outputs): params and state replicate onto it (or come as
+    ``parallel.mesh.replicate``'s per-device lists, so that repeated calls
+    copy nothing) and, per ``shard_axis``,
+    the image axis ("image") or the flat sub-graph-row axis ("subgraph":
+    any batch_images; a single keep-1000 image spreads over the devices)
+    shards over it.  The captions, keep sets and scores are the unsharded
+    run's, but the wall time is longer than on one card (see above).
     """
+    if shard_axis not in ("image", "subgraph"):
+        raise ValueError(f"shard_axis must be 'image' or 'subgraph', "
+                         f"got {shard_axis!r}")
+    if shard_axis != "image" and mesh is None:
+        raise ValueError(
+            f"shard_axis={shard_axis!r} requires a mesh (it would silently "
+            f"run unsharded otherwise); pass mesh= or use shard_axis='image'")
     if not cfg.use_gpn:
         raise ValueError(
             "run_test_split decodes Sub-GC models only: Full-GC "
             "(use_gpn=False) has no batched route, in the JAX package's "
             "runner either; decode it per image with encode_image + "
             "beam_search")
-    dev = resolve_device(device)
-    infer = make_batched_infer_fn(cfg, ecfg)
+    if mesh is None:
+        dev = resolve_device(device)
+        run = make_batched_infer_fn(cfg, ecfg)
+
+        def dispatch(graph, subs, generator):
+            return run(params, state, to_device(graph, dev),
+                       to_device(subs, dev), generator)
+    else:
+        dev = resolve_device(mesh.devices[0])
+        for d in mesh.devices[1:]:
+            resolve_device(d)
+        params_m = params if isinstance(params, list) \
+            else M.replicate(mesh, params)
+        state_m = state if isinstance(state, list) \
+            else M.replicate(mesh, state)
+        if shard_axis == "subgraph":
+            run = make_batched_infer_fn(cfg, ecfg, mesh=mesh)
+
+            def dispatch(graph, subs, generator):
+                return run(params_m, state_m, to_device(graph, dev),
+                           to_device(subs, dev), generator)
+        else:
+            run = make_batched_infer_fn(cfg, ecfg)
+
+            def dispatch(graph, subs, generator):
+                return _infer_image_sharded(run, params_m, state_m, graph,
+                                            subs, mesh, generator)
     generator = torch.Generator(device=dev).manual_seed(2019)
     examples = list(loader.iter_split(split, num_images))
     if not examples:
@@ -115,8 +289,7 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
         # fixed-size image batches (the last one padded by repetition)
         padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
         graph, subs = _stack_examples(padded)
-        out = infer(params, state, to_device(graph, dev),
-                    to_device(subs, dev), generator)
+        out = dispatch(graph, subs, generator)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         for bi, ex in enumerate(chunk):
             n = int(out["keep_valid"][bi].sum())

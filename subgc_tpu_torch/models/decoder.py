@@ -38,6 +38,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import row_attention, shared_attention
+from ..parallel import distributed as DP
 from .encoder import batch_norm_1d, batch_norm_1d_train
 from .gpn import node_membership
 
@@ -121,24 +122,39 @@ def cast_decoder_weights(params, cfg: ModelConfig):
     return {**params, "decoder": dec}
 
 
-def _dropout(x, rate, generator, train):
+def _dropout(x, rate, generator, train, axis: int = 0):
     """Inverted dropout with one mask entry per element: keep with
     probability ``1 - rate``, scale the kept by ``1 / (1 - rate)``.  Off at
-    eval, at rate 0 and without a generator."""
+    eval, at rate 0 and without a generator.  ``axis`` is the batch axis,
+    along which a data-parallel rank keeps its rows of the global draw
+    (``parallel.distributed.rand_rows``)."""
     if not train or rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    keep = DP.rand_rows(x.shape, generator, x.device, axis=axis) \
         < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def draw_categorical(logits, generator):
+def draw_categorical(logits, generator, rows=None):
     """One categorical draw per row from unnormalised log-probabilities
     (Gumbel-max, as ``jax.random.categorical``); -inf entries are never
-    drawn."""
-    u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
-                   device=logits.device)
-    u = u.clamp_(min=torch.finfo(logits.dtype).tiny)
+    drawn.
+
+    ``rows=(offset, total)``: these rows are rows ``offset ..`` of a
+    ``total``-row batch, and the uniforms are drawn for all ``total`` rows
+    and cut to these, so that a shard of a sharded decode draws what the
+    unsharded decode draws for its rows.  Under a data-parallel group the
+    draw is the global batch's (``parallel.distributed.rand_rows``)."""
+    if rows is not None:
+        offset, total = rows
+        u = torch.rand((total,) + tuple(logits.shape[1:]),
+                       generator=generator, dtype=logits.dtype,
+                       device=logits.device)
+        u = u[offset:offset + logits.shape[0]]
+    else:
+        u = DP.rand_rows(logits.shape, generator, logits.device,
+                         dtype=logits.dtype)
+    u = u.clamp(min=torch.finfo(logits.dtype).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -303,8 +319,10 @@ def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):
 
     Per-row queries (h [S, R]; greedy and top-k):
 
-    * image-shared fan-out (``att_img`` set): rows group per image by
-      position, K = S // G consecutive rows each (JAX ``decoder.py:488-526``);
+    * image-shared fan-out (``att_img`` set): each row attends over its
+      image's streams, ``img_ix`` [S] (or, without a map of every row, by
+      position: K = S // G consecutive rows each, JAX
+      ``decoder.py:488-526``);
       :func:`shared_attention` at one beam;
     * per-row streams (``att``/``p_att`` [S, N, *]; attention capture and
       grounding): :func:`row_attention`.
@@ -331,14 +349,19 @@ def attention(params, h, feats: PreparedFeatures, cfg: ModelConfig):
         if a.dim() == 2:                        # single-image layout
             a, p = a[None], p[None]
         G, S = a.shape[0], h.shape[0]
-        # the grouping is positional and ignores img_ix, as in the JAX
-        # package: rows are the images' kept sub-graphs in order
-        if S % G != 0:
-            raise ValueError(
-                f"image-shared attention needs rows grouped per image: "
-                f"S={S} not divisible by B={G}")
-        idx = torch.arange(G, dtype=torch.int32,
-                           device=h.device).repeat_interleave(S // G)
+        if feats.img_ix is not None and feats.img_ix.shape[0] == S:
+            # the row -> image map: also right for a shard of the rows
+            # that starts inside an image (a sub-graph-axis chunk)
+            idx = feats.img_ix.to(torch.int32)
+        else:
+            # positional, as in the JAX package: rows are the images'
+            # kept sub-graphs in order
+            if S % G != 0:
+                raise ValueError(
+                    f"image-shared attention needs rows grouped per image: "
+                    f"S={S} not divisible by B={G}")
+            idx = torch.arange(G, dtype=torch.int32,
+                               device=h.device).repeat_interleave(S // G)
         out, w = shared_attention(h[:, None, :].contiguous(), p.contiguous(),
                                   a.contiguous(), feats.mask.contiguous(),
                                   idx, wh, bh, v, bv)
@@ -586,7 +609,7 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
         R1 = cfg.rnn_size
         dt = cfg.cdtype
         xt = torch.relu(dec["embed"][seq[:, :n_steps].T])      # [T, S, E]
-        xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
+        xt = _dropout(xt, cfg.drop_prob_lm, generator, train, axis=1)
         xt_ih = _matmul(xt.reshape(n_steps * S, -1),
                         dec["att_lstm"]["w_ih"][2 * R1:], dt,
                         keep=cfg.bf16_lstm_gates and dt != F32
@@ -601,7 +624,7 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
     for i in range(n_steps):
         token = seq[:, i]
         if train and i >= 1:
-            use = torch.rand((S,), generator=ss_gen, device=dev) < ss_prob
+            use = DP.rand_rows((S,), ss_gen, dev) < ss_prob
             sampled = draw_categorical(lps[-1].detach(), ss_gen)
             token = torch.where(use, sampled, token)
         lp, state, _ = decode_step(params, state, token, feats, cfg, train,

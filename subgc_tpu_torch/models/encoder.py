@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig
+from ..parallel import distributed as DP
 
 
 def batch_norm_1d(x, p, s, eps: float = 1e-5):
@@ -39,8 +40,23 @@ def batch_norm_1d_train(x, p, s, momentum: float = 0.1, eps: float = 1e-5,
     mask [M] (optional): statistics cover only rows with mask 1, divided by
     ``mask.sum()`` (the reference's pack_wrapper, `AttModel.py:28-37,364`,
     where BatchNorm1d sees only the packed real rows).
+
+    Under ``parallel.distributed.data_parallel(group)`` the count, the mean
+    and the variance are the global batch's, as JAX's sharded step computes
+    them, in the same two passes (the global mean, then the global sum of
+    squared deviations), through the differentiable all-reduce, so that
+    the moments' gradient reaches every rank (SyncBatchNorm's pattern).
     """
-    if mask is None:
+    group = DP.active_group()
+    if group is not None:
+        if mask is None:
+            mask = torch.ones(x.shape[:1], dtype=x.dtype, device=x.device)
+        m = DP.all_reduce_sum(mask.sum(), group)
+        mean = DP.all_reduce_sum((x * mask[:, None]).sum(0), group) / m
+        d = (x - mean) * mask[:, None]
+        var = DP.all_reduce_sum((d * d).sum(0), group) / m
+        unbiased = var * (m / torch.clamp(m - 1.0, min=1.0))
+    elif mask is None:
         m = x.shape[0]
         mean = x.mean(0)
         d = x - mean

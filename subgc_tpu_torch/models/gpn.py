@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import ModelConfig
+from ..parallel import distributed as DP
 from .encoder import one_hot
 
 
@@ -45,8 +46,7 @@ def gpn_score(params, read_out, train: bool = False, generator=None,
     g = params["gpn"]
     h = torch.relu(_dense(read_out, g["fc1"]))
     if train and generator is not None:
-        keep = torch.rand(h.shape, generator=generator,
-                          device=h.device) < 0.5
+        keep = DP.rand_rows(h.shape, generator, h.device) < 0.5
         h = torch.where(keep, h * 2.0, torch.zeros_like(h))
     logits = _dense(h, g["fc2"])[..., 0]
     scores = torch.sigmoid(logits)
@@ -79,7 +79,14 @@ def bce_loss(scores, targets, eps_clamp: float = 100.0, logits=None):
             below, torch.clamp(torch.log1p(-torch.where(
                 below, scores, torch.zeros_like(scores))), min=-eps_clamp),
             const)
-    return -(targets * log_s + (1.0 - targets) * log_1s).mean()
+    nll = -(targets * log_s + (1.0 - targets) * log_1s)
+    group = DP.active_group()
+    if group is None:
+        return nll.mean()
+    # a data-parallel rank: its sum over the global entry count
+    count = DP.all_reduce_sum(torch.full((), float(nll.numel()),
+                                         device=nll.device), group)
+    return nll.sum() / count
 
 
 def readout_project(params, read_out):

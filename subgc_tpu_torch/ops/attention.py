@@ -27,7 +27,11 @@ does about it is written at the top of the CUDA source.  The tile plan
 CPU tests can check it.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises.  The kernels are forward-only, as the Pallas kernels are: asked for
+raises.  Each launcher makes the tensors' card current around its launch
+(and the shared-memory attribute the CUDA entry sets with it): the entry
+launches on the calling thread's current device, which need not be the
+card the tensors lie on (a thread serving ``cuda:1`` whose current device
+is ``cuda:0``).  The kernels are forward-only, as the Pallas kernels are: asked for
 a gradient (grad mode on and an input that requires grad) they raise rather
 than return outputs that autograd cannot see through.  Training attends
 through ``models/decoder.py::attention_teacher`` instead.
@@ -291,11 +295,12 @@ def run_attention_project(h, wh, bh, plan):
     part = project_scratch(plan, Q, H, h.device)
     ah = torch.empty((Q, H), dtype=F32, device=h.device)
     fn = _fn(f"subgc_attention_project_{_suffix(h.dtype)}", 5, 6)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    _raise_on("attention_project",
-              fn(h.data_ptr(), wh.data_ptr(), bh.data_ptr(), part.data_ptr(),
-                 ah.data_ptr(), Q, Hin, H, plan.bm, plan.bn, plan.splits,
-                 stream))
+    with torch.cuda.device(h.device):     # the tensors' card (docstring)
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        _raise_on("attention_project",
+                  fn(h.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+                     part.data_ptr(), ah.data_ptr(), Q, Hin, H, plan.bm,
+                     plan.bn, plan.splits, stream))
     count_launch()
     return ah
 
@@ -379,11 +384,13 @@ def run_shared_attention(args, plan):
     out = torch.empty((S, B, D), dtype=F32, device=dev)
     w = torch.empty((S, B, N), dtype=F32, device=dev)
     fn = _fn(f"subgc_shared_attention_{_suffix(args[1].dtype)}", 12, 11)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on("shared_attention",
-              fn(*(t.data_ptr() for t in args), part.data_ptr(),
-                 out.data_ptr(), w.data_ptr(), S, B, R, G, N, H, D, plan.bm,
-                 plan.bn, plan.splits, plan.rows_per_block, stream))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on("shared_attention",
+                  fn(*(t.data_ptr() for t in args), part.data_ptr(),
+                     out.data_ptr(), w.data_ptr(), S, B, R, G, N, H, D,
+                     plan.bm, plan.bn, plan.splits, plan.rows_per_block,
+                     stream))
     count_launch("SHARED_BF16_LAUNCHES" if bf16 else "LAUNCHES")
     return out, w
 
@@ -461,11 +468,12 @@ def run_row_attention(args, plan):
     out = torch.empty((R, D), dtype=F32, device=dev)
     w = torch.empty((R, N), dtype=F32, device=dev)
     fn = _fn(f"subgc_row_attention_{_suffix(args[1].dtype)}", 11, 8)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on("row_attention",
-              fn(*(t.data_ptr() for t in args), part.data_ptr(),
-                 out.data_ptr(), w.data_ptr(), R, Hin, N, H, D, plan.bm,
-                 plan.bn, plan.splits, stream))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on("row_attention",
+                  fn(*(t.data_ptr() for t in args), part.data_ptr(),
+                     out.data_ptr(), w.data_ptr(), R, Hin, N, H, D, plan.bm,
+                     plan.bn, plan.splits, stream))
     count_launch("ROW_BF16_LAUNCHES" if bf16 else "ROW_LAUNCHES")
     return out, w
 

@@ -19,6 +19,14 @@ shipped configs; the JAX package's pipeline, step for step:
 
 It runs in float32 and in the bf16 chain (``cfg.compute_dtype``,
 ``bf16_lstm_gates``), as the JAX step does with its config.
+
+Under a data-parallel process group (``group``) each rank decodes its
+slice of the batch, drawing the global batch's uniforms and keeping its
+rows; the host gathers every rank's greedy and sampled sequences, scores
+the *global* batch (CIDEr's document frequencies are the batch's, as the
+JAX step scores its gathered global samples) on every rank, and each rank
+keeps its own rows' rewards.  The update normalises by the global mask
+count and sums the gradients over the ranks.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from ..models import decoder as D
 from ..models import encoder as E
 from ..models import gpn as G
 from ..models import subgc
+from ..parallel import distributed as DP
 from ..utils.text import decode_sequence
 from . import optim
 from .loss import reward_loss
@@ -84,17 +93,19 @@ def _rollout(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     return torch.stack(seq, 1), torch.stack(lps, 1)
 
 
-def make_sample_fn(cfg: ModelConfig):
+def make_sample_fn(cfg: ModelConfig, group=None):
     """One dispatch without autograd: sample(params, state, batch,
     generator) -> (greedy tokens, sampled tokens, the sample's logprobs),
-    each [S, T] on the batch's device."""
+    each [S, T] on the batch's device.  ``group``: the draws are the
+    global batch's, cut to this rank's rows."""
 
     @torch.no_grad()
     def sample(params, state, batch: TrainBatch, generator):
         p = D.cast_decoder_weights(params, cfg)
         feats = _prepare_sentence_feats(p, state, batch, cfg)
         greedy_seq, _ = _rollout(p, feats, cfg)
-        sample_seq, sample_lps = _rollout(p, feats, cfg, generator)
+        with DP.data_parallel(group):
+            sample_seq, sample_lps = _rollout(p, feats, cfg, generator)
         return greedy_seq, sample_seq, sample_lps
 
     return sample
@@ -142,18 +153,24 @@ def scst_loss(params, state, batch: TrainBatch, sample_seq, rewards,
     return reward_loss(lps, sample_seq, rewards[:, None].expand_as(lps))
 
 
-def make_scst_update_fn(cfg: ModelConfig, tcfg: TrainConfig):
+def make_scst_update_fn(cfg: ModelConfig, tcfg: TrainConfig, group=None):
     """The second dispatch: update(ts, batch, sample_seq, rewards, epoch)
     -> (ts, loss as a 0-d tensor).  The gradient of :func:`scst_loss`, then
     the clipped step of ``tcfg.optim`` at ``learning_rate(ts.step,
-    epoch)``, in place on the params."""
+    epoch)``, in place on the params.  ``group``: the loss and the
+    gradients are the global batch's."""
 
     def update(ts: TrainState, batch: TrainBatch, sample_seq, rewards,
                epoch: int):
-        loss = scst_loss(ts.params, ts.model_state, batch, sample_seq,
-                         rewards, cfg)
-        grads = torch.autograd.grad(loss, optim.tree_leaves(ts.params),
-                                    allow_unused=True)
+        with DP.data_parallel(group):
+            loss = scst_loss(ts.params, ts.model_state, batch, sample_seq,
+                             rewards, cfg)
+        leaves = optim.tree_leaves(ts.params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if group is not None:
+            grads = DP.all_reduce_gradients(grads, leaves, group)
+            loss = loss.detach().clone()
+            torch.distributed.all_reduce(loss, group=group)
         lr = optim.learning_rate(ts.step, epoch, tcfg)
         opt_state, _ = optim.apply_update(ts.params, grads, ts.opt_state, lr,
                                           tcfg)
@@ -164,14 +181,26 @@ def make_scst_update_fn(cfg: ModelConfig, tcfg: TrainConfig):
 
 
 def scst_train_step(ts: TrainState, batch: TrainBatch, gts_tokens, vocab,
-                    sample_fn, update_fn, generator, epoch: int):
+                    sample_fn, update_fn, generator, epoch: int, group=None):
     """Full SCST iteration (two dispatches + host reward).  Returns (ts,
-    loss, mean reward) with the two numbers on the host."""
+    loss, mean reward) with the two numbers on the host.
+
+    ``group``: ``batch`` is this rank's slice, ``gts_tokens`` the global
+    batch's (one entry per global sentence), and the functions were made
+    with the same group; the rewards are scored over the gathered global
+    batch and the numbers returned are the global ones."""
     greedy_seq, sample_seq, _ = sample_fn(ts.params, ts.model_state, batch,
                                           generator)
-    rewards = compute_rewards(greedy_seq.cpu().numpy(),
-                              sample_seq.cpu().numpy(), gts_tokens, vocab)
+    greedy_np, sample_np = greedy_seq.cpu().numpy(), sample_seq.cpu().numpy()
+    lo, S = 0, len(sample_np)
+    if group is not None:
+        greedy_all = DP.all_gather_arrays(greedy_np, group)
+        sample_all = DP.all_gather_arrays(sample_np, group)
+        lo = sum(len(x) for x in sample_all[:DP.get_process_index(group)])
+        greedy_np = np.concatenate(greedy_all)
+        sample_np = np.concatenate(sample_all)
+    rewards = compute_rewards(greedy_np, sample_np, gts_tokens, vocab)
     ts, loss = update_fn(ts, batch, sample_seq,
-                         torch.from_numpy(rewards).to(sample_seq.device),
-                         epoch)
+                         torch.from_numpy(rewards[lo:lo + S]).to(
+                             sample_seq.device), epoch)
     return ts, float(loss), float(rewards.mean())

@@ -2,8 +2,9 @@
 JAX package's, on one checkpoint written by the JAX package's
 ``save_checkpoint`` from ``init_params``: the two ``captions_*.npy`` /
 ``ctl_captions_*.npy`` artifacts are equal entry by entry (sGPN scores
-within atol 1e-5).  Flags whose code is not ported (parallelism) stop the
-port's CLI; ``--packed_path`` and ``--group_size``, ported since, decode.
+within atol 1e-5).  ``--n_devices`` / ``--shard_subgraphs``,
+``--packed_path`` and ``--group_size``, each refused until it was ported,
+decode.
 """
 import json
 import os
@@ -115,18 +116,30 @@ def pack_run_data(common, path):
     ["--n_devices", "2"], ["--shard_subgraphs"],
     ["--packed_path", "shards/*.bin"], ["--group_size", "2"]])
 def test_cli_refuses_unported_flags(run, tmp_path, flags):
-    """Parallelism (ROADMAP item 13) stops the CLI.  Packed shards and
-    diverse groups, refused until they were ported, now decode: a shard's
-    captions equal the npz run's, and two groups of two beams give one
-    caption per kept sub-graph."""
-    if flags[0] in ("--n_devices", "--shard_subgraphs"):
-        with pytest.raises(SystemExit, match="ROADMAP item"):
-            p_cli.main(["Sub_GC_Kar", "--checkpoint_path", str(tmp_path),
-                        "--device", "cpu"] + flags)
-        return
+    """Flags refused until they were ported now decode.  ``--n_devices
+    2`` (the image axis over two CPU entries) and ``--shard_subgraphs``
+    (with ``--n_devices 3``, the flat sub-graph rows in uneven chunks) give
+    the one-device run's captions, keep sets and scores; the JAX CLI's bad
+    combinations stop with its messages.  A packed shard's captions equal
+    the npz run's, and two groups of two beams give one caption per kept
+    sub-graph."""
     ckpt, common = run
     base = ["Sub_GC_Kar", "--device", "cpu"]
-    if flags[0] == "--packed_path":
+    if flags[0] == "--n_devices":
+        with pytest.raises(SystemExit, match="must be divisible by "
+                                             "--n_devices 3"):
+            p_cli.main(base + common + ["--n_devices", "3"])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: True)
+            mp.setattr(torch.cuda, "device_count", lambda: 1)
+            with pytest.raises(SystemExit, match="--n_devices 2 > 1 "
+                                                 "attached devices"):
+                p_cli.main(["Sub_GC_Kar"] + common + flags)
+    elif flags[0] == "--shard_subgraphs":
+        with pytest.raises(SystemExit, match="requires --n_devices > 1"):
+            p_cli.main(base + common + flags)
+        flags = flags + ["--n_devices", "3"]
+    elif flags[0] == "--packed_path":
         os.makedirs(tmp_path / "shards")
         pack_run_data(common, str(tmp_path / "shards" / "part-0.bin"))
         flags = ["--packed_path", str(tmp_path / "shards" / "*.bin")]
@@ -141,8 +154,10 @@ def test_cli_refuses_unported_flags(run, tmp_path, flags):
         np.testing.assert_array_equal(a["sorted_subgraph_ind"],
                                       b["sorted_subgraph_ind"])
         assert len(a["caption"]) == len(b["caption"]) > 0
-        if flags[0] == "--packed_path":
+        if flags[0] != "--group_size":
             assert a["caption"] == b["caption"]
+            np.testing.assert_allclose(a["subgraph_score"],
+                                       b["subgraph_score"], rtol=1e-5)
 
 
 def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):

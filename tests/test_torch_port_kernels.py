@@ -12,6 +12,8 @@ Kernel against plain: weights within atol 1e-5, att_res within rtol 1e-4 /
 atol 1e-4, the projection stage alone within rtol / atol 1e-5 (float32
 summation order).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -625,3 +627,74 @@ def test_first_build_and_load_from_many_threads_on_card(tmp_path,
     assert len([f for f in tmp_path.iterdir() if f.suffix == ".so"]) == 1
     for out, w in outs:
         torch.testing.assert_close(w, want[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card_from_another_current_device():
+    """The launchers make the tensors' card current: inputs on ``cuda:1``,
+    launched from a thread whose current device is ``cuda:0``, give the
+    plain versions' results on ``cuda:1`` (the shared and row kernels and
+    the projection alone)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    shared = [t.to(dev) for t in _inputs("image", seed=3)]
+    row = [t.to(dev) for t in _row_inputs(seed=4)]
+    out = {}
+
+    def work():
+        torch.cuda.set_device(0)
+        with torch.no_grad():
+            out["shared"] = A.shared_attention(*shared)
+            out["row"] = A.row_attention(*row)
+            out["project"] = A.attention_project(row[0], row[4], row[5])
+        torch.cuda.synchronize(dev)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and sorted(out) == ["project", "row", "shared"]
+    for name, ref in (("shared", A.shared_attention_ref(*shared)),
+                      ("row", A.row_attention_ref(*row))):
+        (o, w), (r_o, r_w) = out[name], ref
+        assert o.device == dev
+        torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+        torch.testing.assert_close(o, r_o, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        out["project"], A.attention_project_ref(row[0], row[4], row[5]),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_train_step_on_card(tmp_path):
+    """A one-rank NCCL group on ``cuda:0`` runs the data-parallel step
+    (its gradient bucket and BatchNorm moments all-reduced by NCCL) and
+    matches the single-process step: losses rtol 1e-5, the gradients the
+    optimizer gets rtol 2e-4 (``same_gradients``), parameters rtol 2e-4 /
+    atol 1e-6, the val pass through the row kernel."""
+    _cuda()
+    from dataclasses import asdict
+
+    from subgc_tpu_torch.config import ModelConfig, TrainConfig
+    from subgc_tpu_torch.data.synthetic import synthetic_train_batch
+    from subgc_tpu_torch.parallel import steps as PS
+    cfg = ModelConfig(vocab_size=50, rnn_size=64, input_encoding_size=48,
+                      att_hid_size=32, gcn_dim=40, fc_feat_size=64,
+                      att_feat_size=80, embed_dim=20, num_obj_classes=30,
+                      num_rel_classes=10, gcn_bn=True, use_gpn=False,
+                      noun_fuse=False, pred_emb_type=2)
+    spec = dict(cfg=asdict(cfg), tcfg=asdict(TrainConfig(batch_size=4)),
+                params_seed=3, seed=7, steps=[None, 0.25],
+                batches=[synthetic_train_batch(cfg, 4, s) for s in (1, 2)],
+                val_batch=synthetic_train_batch(cfg, 4, 9), grads=True)
+    (report,), = PS.run_ranks([spec], ["cuda:0"], str(tmp_path))
+    ref = PS.run_steps(spec, "cuda:0")
+    assert report["backend"] == "nccl"
+    np.testing.assert_allclose([m["loss"] for m in report["metrics"]],
+                               [m["loss"] for m in ref["metrics"]],
+                               rtol=1e-5)
+    assert PS.same_gradients(report, ref) == []
+    assert PS.same_parameters(report, ref) == []
+    np.testing.assert_allclose(report["val_loss"], ref["val_loss"],
+                               rtol=1e-5)
+    assert report["val_launches"]["row"] == cfg.seq_length + 1

@@ -18,8 +18,10 @@ weights and requests at the widths of ``tests/test_serve.py``:
   into one dispatch;
 * a float32 and a bf16 dispatch running at the same time on two threads:
   the bf16 matmul flag the server pins stays False throughout;
-* the entry points run on the card unless asked for the CPU, and
-  ``--shard_fanout 2`` stops with ROADMAP item 13.
+* the entry points run on the card unless asked for the CPU;
+  ``--shard_fanout 2`` excludes ``--replicas 2`` and the cards it lacks,
+  and on the CPU serves what the unsharded registry serves
+  (``tests/test_torch_port_parallel_serve.py`` holds the sharded service).
 
 The HTTP surface is ``tests/test_torch_port_serve_http.py``.
 """
@@ -39,8 +41,9 @@ from subgc_tpu.cli import serve as JS
 from subgc_tpu.config import EvalConfig as JEvalConfig
 from subgc_tpu.config import ModelConfig as JModelConfig
 from subgc_tpu_torch.cli import serve as PS
-from subgc_tpu_torch.config import EvalConfig, ModelConfig
+from subgc_tpu_torch.config import EvalConfig, ModelConfig, config_to_json
 from subgc_tpu_torch.models.params import init_params_numpy
+from subgc_tpu_torch.train.checkpoint import save_checkpoint
 
 from .test_torch_port_train import one_thread  # noqa: F401
 
@@ -257,12 +260,30 @@ def _ns(**kw):
     return argparse.Namespace(**{**base, **kw})
 
 
-def test_shard_fanout_is_refused_naming_item_13(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 13"):
-        PS.load_registry(_ns(shard_fanout=2))
-    with pytest.raises(SystemExit, match="ROADMAP item 13"):
-        PS.main(["--checkpoint_path", str(tmp_path), "--shard_fanout", "2",
-                 "--device", "cpu"])
+def test_shard_fanout_is_refused_naming_item_13(tmp_path, monkeypatch,
+                                                pinned_flags):
+    """``--shard_fanout``, refused until parallelism was ported, now
+    serves: it excludes ``--replicas > 1`` and takes at most
+    the attached cards, with the JAX server's messages, and on the CPU a
+    ``--shard_fanout 2`` registry answers as the unsharded one does."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        PS.load_registry(_ns(shard_fanout=2, replicas=2, device="cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--shard_fanout 2 > 1 attached"):
+        PS.load_registry(_ns(shard_fanout=2, device="cuda"))
+    params, state = weights()
+    ckpt = str(tmp_path / "ckpt")
+    save_checkpoint(ckpt, params, state, None,
+                    {"iter": 1, "model_type": "Sub_GC_Kar",
+                     "model_config": config_to_json(ModelConfig(**WIDTHS)),
+                     "vocab": VOCAB}, {})
+    regs = [PS.load_registry(_ns(checkpoint_path=[f"kar={ckpt}"],
+                                 shard_fanout=n)) for n in (2, 1)]
+    svc = regs[0].models["kar"]
+    assert svc.describe()["fanout_devices"] == 2
+    img = image(np.random.RandomState(4), 7)
+    assert svc([img]) == regs[1].models["kar"]([img])
 
 
 def test_service_runs_on_the_card_unless_asked(monkeypatch):
