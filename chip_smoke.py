@@ -259,6 +259,27 @@ on the one card):
     per rank, the gradient bucket's all-reduce ms and process start-up
     seconds printed.
 
+The published-weights route; 27 runs last:
+
+27. (a) a seeded Sub_GC_Kar state_dict in the reference's layout (its key
+    names, torch's ``[out, in]`` Linear and ``[4H, in]`` LSTMCell weights,
+    BatchNorm ``num_batches_tracked``) at ``ModelConfig()`` widths,
+    ``torch.save``d as ``model-60000.pth`` beside an ``infos_*.pkl``
+    (``argparse.Namespace`` opt, vocab, iter, epoch); ``cli/convert_ckpt.py
+    --pth --infos --out DIR`` (seconds, MiB); ``setup(start_from=DIR,
+    device="cuda")`` equal to the seeded arrays bitwise; the beam-shared
+    kernel against its plain version at the phase's shape (image-shared,
+    S=160, G=16, B=2) on the converted weights; then ``cli/test.py`` on 16
+    synthetic images at the model's widths (npz label file) with
+    ``--device cuda``: the kernel exactly seq_length launches (one
+    dispatch), captions/s; and with ``--device cpu``: identical keep sets,
+    >= 95% identical captions, sGPN scores rtol 1e-4; (b) the same route
+    for Full_GC_Kar (GCN BatchNorm keys, ``--full-gc``'s layout) on one
+    image through ``encode_image`` + ``beam_search`` (S=1, 3 beams):
+    seq_length launches, the kernel at that shape, the card's caption the
+    CPU's; (c) ``cli/quickstart.py --device cuda`` in a temporary workdir
+    runs to its end (train, decode + language eval, diversity, rerank).
+
 Prints a ``{"kernels": [...]}`` line (both kernels and their bf16
 variants), then ``{"ok": true, "device": ...}`` as the last line.  Needs
 no network and imports no jax.
@@ -3161,6 +3182,334 @@ def run_data_parallel():
     return row_launches, stats
 
 
+# ---- the published-weights route (phase 27)
+
+PUBLISHED_IMAGES = 16     # 27a: one 16-image dispatch of the test CLI
+PUBLISHED_BUCKET = 16     # the synthetic banks' 5 GT + 8 sampled sub-graphs
+
+
+def reference_weights(cfg, seed):
+    """The port's (params, state) from ``init_params_numpy(cfg, seed)``,
+    with every BatchNorm scale, bias and running statistic drawn from the
+    seed too (scale ~U(0.8, 1.2), bias and mean ~N(0, 0.05), var ~U(0.8,
+    1.2)), so that a swapped or dropped BatchNorm leaf shows."""
+    from subgc_tpu_torch.models.params import init_params_numpy
+    params, state = init_params_numpy(cfg, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+
+    def draw(p, s):
+        n = p["scale"].shape
+        p["scale"] = rng.uniform(0.8, 1.2, n).astype("f")
+        p["bias"] = rng.normal(0, 0.05, n).astype("f")
+        s["mean"] = rng.normal(0, 0.05, n).astype("f")
+        s["var"] = rng.uniform(0.8, 1.2, n).astype("f")
+
+    if cfg.gcn_bn:
+        for layer, slayer in zip(params["gcn"], state["gcn_bn"]):
+            for unit, sunit in zip(layer, slayer):
+                draw(unit["bn"], sunit)
+    for i in range(cfg.use_bn):
+        draw(params["decoder"][f"att_bn{i}"], state["att_bn"][f"bn{i}"])
+    return params, state
+
+
+def reference_state_dict(params, state, cfg):
+    """The reference ``TopDownModel``'s state_dict holding the port's
+    (params, state): its key names, torch's ``[out, in]`` Linear and
+    ``[4H, in]`` LSTMCell layouts, ``att_embed``'s index shift under
+    ``use_bn`` and each BatchNorm's ``num_batches_tracked`` counter (the
+    inverse of ``cli/convert_ckpt.py::torch_state_dict_to_params``)."""
+    import torch
+    sd = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def lin(name, p):
+        sd[name + ".weight"], sd[name + ".bias"] = t(p["w"].T), t(p["b"])
+
+    def lstm(name, p):
+        sd[name + ".weight_ih"] = t(p["w_ih"].T)
+        sd[name + ".weight_hh"] = t(p["w_hh"].T)
+        sd[name + ".bias_ih"], sd[name + ".bias_hh"] = t(p["b_ih"]), t(p["b_hh"])
+
+    def bn(name, p, s):
+        sd[name + ".weight"], sd[name + ".bias"] = t(p["scale"]), t(p["bias"])
+        sd[name + ".running_mean"] = t(s["mean"])
+        sd[name + ".running_var"] = t(s["var"])
+        sd[name + ".num_batches_tracked"] = torch.tensor(60000)
+
+    fusion = params["fusion"]
+    lin("obj_v_proj", fusion["obj_v_proj"])
+    if cfg.noun_fuse:
+        sd["sg_obj_embed.weight"] = t(fusion["obj_emb"])
+        lin("obj_emb_proj", fusion["obj_emb_proj"])
+    sd["sg_pred_embed.weight"] = t(fusion["pred_emb"])
+    lin("pred_emb_prj", fusion["pred_emb_proj"])
+    for i, layer in enumerate(params["gcn"]):
+        for u, unit in enumerate(layer):
+            pre = f"gcn_backbone.gcn.{i}.gcn_collect.collect_units.{u}"
+            lin(pre + ".fc_lft", unit["lft"])
+            lin(pre + ".fc_rgt", unit["rgt"])
+            if cfg.gcn_bn:
+                bn(pre + ".bn", unit["bn"], state["gcn_bn"][i][u])
+    if cfg.use_gpn:
+        gpn = params["gpn"]
+        if not cfg.use_gt_subg:
+            lin("gpn_layer.gpn_fc.0", gpn["fc1"])
+            lin("gpn_layer.gpn_fc.3", gpn["fc2"])
+        lin("gpn_layer.read_out_proj.0", gpn["readout1"])
+        lin("gpn_layer.read_out_proj.1", gpn["readout2"])
+    else:
+        lin("read_out_proj.0", params["readout"]["readout1"])
+        lin("read_out_proj.1", params["readout"]["readout2"])
+    dec = params["decoder"]
+    sd["embed.0.weight"] = t(dec["embed"])
+    lin("fc_embed.0", dec["fc_embed1"])
+    lin("fc_embed.2", dec["fc_embed2"])
+    lin(f"att_embed.{1 if cfg.use_bn else 0}", dec["att_embed"])
+    if cfg.use_bn:
+        bn("att_embed.0", dec["att_bn0"], state["att_bn"]["bn0"])
+    if cfg.use_bn == 2:
+        bn("att_embed.4", dec["att_bn1"], state["att_bn"]["bn1"])
+    lin("ctx2att", dec["ctx2att"])
+    lstm("core.att_lstm", dec["att_lstm"])
+    lstm("core.lang_lstm", dec["lang_lstm"])
+    lin("core.attention.h2att", dec["h2att"])
+    lin("core.attention.alpha_net", dec["alpha_net"])
+    lin("logit", dec["logit"])
+    return sd
+
+
+def reference_infos(cfg, vocab, run_id="topdown", iteration=60000, epoch=30):
+    """A reference ``infos_*.pkl``'s contents: its ``opt`` namespace (the
+    model fields with the reference's 0/1 flags, beside train and data
+    options the converter must not read), ``vocab``, ``iter`` and
+    ``epoch``."""
+    import argparse
+    opt = argparse.Namespace(
+        id=run_id, caption_model="topdown", input_json="data/cocotalk.json",
+        batch_size=64, learning_rate=5e-4, max_length=cfg.seq_length,
+        vocab_size=cfg.vocab_size, seq_length=cfg.seq_length,
+        input_encoding_size=cfg.input_encoding_size, rnn_size=cfg.rnn_size,
+        num_layers=cfg.num_layers, att_hid_size=cfg.att_hid_size,
+        fc_feat_size=cfg.fc_feat_size, att_feat_size=cfg.att_feat_size,
+        drop_prob_lm=cfg.drop_prob_lm, use_bn=cfg.use_bn,
+        embed_dim=cfg.embed_dim, gcn_dim=cfg.gcn_dim,
+        gcn_layers=cfg.gcn_layers, gcn_residual=cfg.gcn_residual,
+        gcn_bn=int(cfg.gcn_bn), noun_fuse=int(cfg.noun_fuse),
+        pred_emb_type=cfg.pred_emb_type, use_gpn=int(cfg.use_gpn),
+        use_gt_subg=int(cfg.use_gt_subg), obj_num=cfg.obj_num,
+        rel_num=cfg.rel_num)
+    return {"opt": opt, "vocab": dict(vocab), "iter": iteration,
+            "epoch": epoch}
+
+
+def write_reference_checkpoint(workdir, cfg, vocab, seed, run_id="topdown"):
+    """``model-60000.pth`` + ``infos_<run_id>-60000.pkl`` of the seeded
+    reference weights in ``workdir``.  Returns (pth, infos path, params,
+    state): the numpy trees the conversion must give back bitwise."""
+    import pickle
+    import torch
+    params, state = reference_weights(cfg, seed)
+    pth = os.path.join(workdir, "model-60000.pth")
+    torch.save(reference_state_dict(params, state, cfg), pth)
+    infos = os.path.join(workdir, f"infos_{run_id}-60000.pkl")
+    with open(infos, "wb") as f:
+        pickle.dump(reference_infos(cfg, vocab, run_id), f)
+    return pth, infos, params, state
+
+
+def same_leaves(label, got, want):
+    """Every leaf of the numpy tree ``want`` equals ``got``'s bitwise."""
+    from subgc_tpu_torch.models.params import _flatten, params_to_numpy
+    g, w = _flatten(params_to_numpy(got)), _flatten(want)
+    if sorted(g) != sorted(w):
+        fail(f"{label}: leaves differ: {sorted(set(g) ^ set(w))[:8]}")
+    bad = [k for k in w if g[k].dtype != w[k].dtype
+           or g[k].tobytes() != w[k].tobytes()]
+    if bad:
+        fail(f"{label}: {len(bad)} leaves differ from the seeded arrays, "
+             f"first {bad[:4]}")
+    return len(w)
+
+
+def convert_and_setup(label, workdir, cfg, vocab, seed, model_type, man,
+                      device):
+    """The published-weights route up to the model: a seeded
+    reference-layout ``.pth`` + infos pickle, ``cli/convert_ckpt.py --pth
+    --infos --out``, then ``setup(start_from=, device=)`` with the class
+    names of the dataset ``man``, whose params and state must equal the
+    seeded arrays bitwise.  Returns (checkpoint directory, params, state,
+    stats)."""
+    from subgc_tpu_torch import DataConfig, config_from_json, setup
+    from subgc_tpu_torch.cli import convert_ckpt
+    from subgc_tpu_torch.config import ModelConfig
+    os.makedirs(workdir, exist_ok=True)
+    pth, infos, params_np, state_np = write_reference_checkpoint(
+        workdir, cfg, vocab, seed)
+    out = os.path.join(workdir, "converted")
+    t0 = time.perf_counter()
+    convert_ckpt.main(["--pth", pth, "--infos", infos, "--out", out,
+                       "--model_type", model_type])
+    convert_s = time.perf_counter() - t0
+    with open(os.path.join(out, "infos.json")) as f:
+        written = json.load(f)
+    mcfg = config_from_json(ModelConfig, written["model_config"])
+    if any(getattr(mcfg, k) != getattr(cfg, k)
+           for k in convert_ckpt._OPT_TO_MCFG) or \
+            written["iter"] != 60000 or written["vocab"] != dict(vocab):
+        fail(f"{label}: infos.json does not carry the reference's config, "
+             f"iteration and vocab")
+    dcfg = DataConfig(obj_name_path=man["obj_name_path"],
+                      rel_name_path=man["rel_name_path"])
+    params, state = setup(mcfg, dcfg, start_from=out, device=device)
+    n = same_leaves(f"{label} params", params, params_np)
+    n += same_leaves(f"{label} state", state, state_np)
+    stats = {"convert_s": convert_s,
+             "pth_mib": os.path.getsize(pth) / 2**20,
+             "checkpoint_mib": os.path.getsize(
+                 os.path.join(out, "model.npz")) / 2**20,
+             "leaves": n}
+    print(f"{label}: converted {stats['pth_mib']:.1f} MiB .pth in "
+          f"{convert_s:.2f} s -> {stats['checkpoint_mib']:.1f} MiB "
+          f"model.npz; setup(start_from=) on {device}: {n} leaves equal "
+          f"the seeded arrays bitwise")
+    return out, params, state, stats
+
+
+def published_dataset(workdir, cfg, seed):
+    """A synthetic dataset at the model's widths (vocab, classes, 2048-d
+    features) with ``PUBLISHED_IMAGES`` test images, its label file an
+    npz, read without h5py."""
+    from subgc_tpu_torch.data.synthetic import generate_dataset
+    return generate_dataset(
+        os.path.join(workdir, "data"), n_images=5 * PUBLISHED_IMAGES,
+        vocab_size=cfg.vocab_size, n_obj_classes=cfg.num_obj_classes,
+        n_rel_classes=cfg.num_rel_classes, feat_dim=cfg.att_feat_size,
+        seed=seed, label_format="npz")
+
+
+def run_test_cli(ckpt, man, device, tag):
+    """The port's ``cli/test.py`` main on the dataset's test split; returns
+    (predictions, run_test_split's wall s, captions)."""
+    from subgc_tpu_torch.cli import test as test_cli
+    from subgc_tpu_torch.eval import runner
+    timed = {}
+    inner = runner.run_test_split
+
+    def record(*a, **k):
+        out = inner(*a, **k)
+        timed.update(wall=out[1], n_caps=out[2])
+        return out
+
+    runner.run_test_split = record
+    try:
+        res = test_cli.main([
+            "Sub_GC_Kar", "--checkpoint_path", ckpt, "--device", device,
+            "--iter_tag", tag, "--batch_images", str(PUBLISHED_IMAGES),
+            "--bucket", str(PUBLISHED_BUCKET),
+            "--input_json", man["input_json"],
+            "--input_label_h5", man["input_label_h5"],
+            "--sg_dir", man["sg_dir"], "--mask_dir", man["mask_dir"]])
+    finally:
+        runner.run_test_split = inner
+    preds = np.load(res["captions_path"], allow_pickle=True).tolist()
+    return preds, timed["wall"], timed["n_caps"]
+
+
+def run_published(workdir, device="cuda"):
+    """Phase 27: the published-weights route on the card.  27a Sub_GC_Kar
+    and 27b Full_GC_Kar at ``ModelConfig()`` widths from seeded
+    reference-layout checkpoints through ``cli/convert_ckpt.py`` and
+    ``setup``; 27c ``cli/quickstart.py``.  Returns (the beam-shared
+    kernel's launches, its checks, stats)."""
+    import torch
+    from subgc_tpu_torch import build_configs, decode_sequence, setup
+    from subgc_tpu_torch.cli import quickstart
+    from subgc_tpu_torch.ops import attention as A
+    stats = {}
+
+    # ---- 27a. Sub_GC_Kar through the test CLI, card then CPU
+    cfg, ecfg, _ = build_configs("Sub_GC_Kar")
+    man = published_dataset(os.path.join(workdir, "kar"), cfg, seed=27)
+    with open(man["input_json"]) as f:
+        vocab = json.load(f)["ix_to_word"]
+    ckpt, params, _, stats["kar"] = convert_and_setup(
+        "27a Sub_GC_Kar", os.path.join(workdir, "kar"), cfg, vocab, 70,
+        "Sub_GC_Kar", man, device)
+    S = PUBLISHED_IMAGES * ecfg.gpn_max_subg
+    kar_check = check_attention(params, "image", S, PUBLISHED_IMAGES,
+                                seed=71)
+    del params
+    run_test_cli(ckpt, man, device, "warmup")
+    torch.cuda.synchronize()
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    preds, wall, n_caps = run_test_cli(ckpt, man, device, "card")
+    launches = A.LAUNCHES
+    if launches != cfg.seq_length or A.ROW_LAUNCHES:
+        fail(f"27a: beam-shared kernel launched {launches} times, row "
+             f"kernel {A.ROW_LAUNCHES}; expected 1 dispatch x "
+             f"{cfg.seq_length} steps and 0")
+    check_project_launches("27a", launches)
+    check_predictions(preds, PUBLISHED_IMAGES, ecfg.gpn_max_subg,
+                      bucket=PUBLISHED_BUCKET)
+    t0 = time.perf_counter()
+    cpu_preds, _, _ = run_test_cli(ckpt, man, "cpu", "cpu")
+    n_same, n_total = compare_card_cpu(preds, cpu_preds)
+    if n_same < 0.95 * n_total:
+        fail(f"27a: only {n_same}/{n_total} captions agree between card and "
+             f"cpu")
+    stats["kar"].update(captions=n_caps, decode_s=wall,
+                        captions_per_s=n_caps / wall, launches=launches,
+                        card_cpu_same=[n_same, n_total])
+    print(f"27a Sub_GC_Kar from the converted checkpoint: cli/test.py on "
+          f"{PUBLISHED_IMAGES} images, {n_caps} captions in {wall:.3f} s = "
+          f"{n_caps / wall:.1f} captions/s; beam-shared kernel launches "
+          f"{launches}; card vs cpu ({time.perf_counter() - t0:.1f} s): "
+          f"{n_same}/{n_total} captions identical, keep sets identical")
+
+    # ---- 27b. Full_GC_Kar (GCN BatchNorm keys), one image, S=1, B=3
+    cfg, ecfg, _ = build_configs("Full_GC_Kar")
+    vocab = {str(i): f"w{i}" for i in range(1, cfg.vocab_size + 1)}
+    ckpt, params, state, stats["fullgc"] = convert_and_setup(
+        "27b Full_GC_Kar", os.path.join(workdir, "fullgc"), cfg, vocab, 72,
+        "Full_GC_Kar", man, device)
+    fullgc_check = check_attention(params, "subgraph", 1, 1, seed=73,
+                                   beams=ecfg.beam_size)
+    examples = make_examples(cfg, 1, 1, seed=74)
+    decode_fullgc(params, state, examples, cfg, ecfg, device)    # warm-up
+    torch.cuda.synchronize()
+    A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    seqs = decode_fullgc(params, state, examples, cfg, ecfg, device)
+    fullgc_launches = A.LAUNCHES
+    if fullgc_launches != cfg.seq_length or A.ROW_LAUNCHES:
+        fail(f"27b: beam-shared kernel launched {fullgc_launches} times, "
+             f"row kernel {A.ROW_LAUNCHES}; expected {cfg.seq_length} and 0")
+    check_project_launches("27b", fullgc_launches)
+    cpu = decode_fullgc(*setup(cfg, start_from=ckpt, device="cpu"),
+                        examples, cfg, ecfg, torch.device("cpu"))
+    caps, cpu_caps = decode_sequence(vocab, seqs), decode_sequence(vocab, cpu)
+    if caps != cpu_caps:
+        fail(f"27b: card caption {caps} against cpu {cpu_caps}")
+    stats["fullgc"].update(launches=fullgc_launches, caption=caps[0])
+    print(f"27b Full_GC_Kar from the converted checkpoint: beam "
+          f"{ecfg.beam_size}, beam-shared kernel launches "
+          f"{fullgc_launches}; card and cpu captions identical: {caps[0]!r}")
+    del params, state
+
+    # ---- 27c. the quickstart walkthrough on the card
+    t0 = time.perf_counter()
+    qs = quickstart.main([os.path.join(workdir, "quickstart"),
+                          "--device", device])
+    if not (qs["scores"] and qs["rerank_ind"] and qs["top1"]):
+        fail("27c: the quickstart returned no scores or no rerank")
+    stats["quickstart_s"] = time.perf_counter() - t0
+    print(f"27c cli/quickstart.py on {device}: ran to its end in "
+          f"{stats['quickstart_s']:.1f} s")
+    return launches + fullgc_launches, [kar_check, fullgc_check], stats
+
+
 def main():
     try:
         import torch
@@ -3352,6 +3701,14 @@ def main():
     # ---- 26. data-parallel training in spawned ranks
     dp_row, dp_stats = run_data_parallel()
     print(json.dumps({"data_parallel": dp_stats}))
+    # ---- 27. the published-weights route: converted reference checkpoints
+    # through setup and the test CLI, then the quickstart
+    import tempfile
+    with tempfile.TemporaryDirectory() as workdir:
+        pub_launches, pub_checks, pub_stats = run_published(workdir)
+    checks += pub_checks
+    print(json.dumps({"published": pub_stats, "published_attention": dict(
+        zip(("kar_image_S160", "fullgc_S1_B3"), pub_checks)), "card": card}))
     print(json.dumps({"bf16": {
         "test": bf16_test, "train": bf16_train,
         "shared_attention_bf16": dict(zip(
@@ -3368,7 +3725,7 @@ def main():
         "launches": (launches + fan_launches + fullgc_launches
                      + ctl_launches + sup_launches + val_shared
                      + serve_f32 + div_launches["float32"]
-                     + shard_launches),
+                     + shard_launches + pub_launches),
         "max_abs_err": max(c["max_abs_err"]
                            for c in checks + [div_checks["float32"]]),
         "ms": main_check["ms"],

@@ -18,6 +18,12 @@ training attends through torch ops under autograd.  The JAX package
 ``subgc_tpu`` is the reference it is held against; this package imports
 neither it nor jax.
 
+``subgc_tpu_torch.setup`` builds a model's (params, state), optionally
+from a checkpoint directory, and ``python -m subgc_tpu_torch.cli.convert_ckpt``
+writes one from the reference's published ``model-*.pth`` + ``infos_*.pkl``
+(``cli/parity_eval.py`` checks its captions; ``cli/pack.py`` packs shards;
+``cli/quickstart.py`` walks every subsystem on synthetic data).
+
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where every op takes its plain PyTorch version.
 """
@@ -42,3 +48,11 @@ from .models.params import (init_params, load_model_npz,  # noqa: F401
 from .models.subgc import (EncodedImage, encode_image,  # noqa: F401
                            encode_images_batched, train_forward)
 from .utils.text import decode_sequence  # noqa: F401
+
+
+def __getattr__(name):
+    # the model factory, reached as subgc_tpu.setup is in the JAX package
+    if name == "setup":
+        from .models import setup
+        return setup
+    raise AttributeError(name)

@@ -188,8 +188,8 @@ def main(argv=None):
     from ..data.dataset import TrainLoader
     from ..data.prefetch import BatchPrefetcher
     from ..device import resolve_device
-    from ..io.glove import class_embeddings
-    from ..models.params import init_params_numpy, params_from_numpy
+    from ..models import setup_numpy
+    from ..models.params import params_from_numpy
     from ..parallel import distributed as DP
     from ..parallel import launch
     from ..train import checkpoint as C
@@ -235,19 +235,6 @@ def main(argv=None):
     mcfg = mcfg.replace(vocab_size=loader.vocab_size,
                         seq_length=loader.seq_length)
 
-    obj_names = np.load(dcfg.obj_name_path, allow_pickle=True,
-                        encoding="latin1")
-    rel_names = np.load(dcfg.rel_name_path, allow_pickle=True,
-                        encoding="latin1")
-    obj_vecs = rel_vecs = None
-    if os.path.exists(dcfg.glove_path):
-        obj_vecs = class_embeddings(list(obj_names), dcfg.glove_path,
-                                    mcfg.embed_dim)
-        rel_vecs = class_embeddings(list(rel_names), dcfg.glove_path,
-                                    mcfg.embed_dim)
-    params_np, state_np = init_params_numpy(
-        mcfg, seed=args.seed, n_obj_names=len(obj_names),
-        n_pred_names=len(rel_names), obj_glove=obj_vecs, pred_glove=rel_vecs)
     iteration, epoch = 0, 0
     histories = {"loss_history": {}, "lr_history": {}, "ss_prob_history": {},
                  "val_loss_history": {}}
@@ -258,15 +245,14 @@ def main(argv=None):
                                             "model.npz"))):
         args.start_from = args.checkpoint_path
         log(f"auto-resuming from {args.checkpoint_path}")
-    if args.start_from:
-        p2, s2, opt_np, infos, histories2 = C.load_checkpoint(
-            args.start_from, params_template=params_np, optim=tcfg.optim)
-        wm = None
-        if args.word_mapping:
-            wm = np.load(args.word_mapping, allow_pickle=True,
-                         encoding="latin1")
-        params_np = C.optimistic_restore(params_np, p2, word_mapping=wm)
-        state_np = s2
+    wm = None
+    if args.start_from and args.word_mapping:
+        wm = np.load(args.word_mapping, allow_pickle=True, encoding="latin1")
+    params_np, state_np, loaded = setup_numpy(
+        mcfg, dcfg, seed=args.seed, start_from=args.start_from,
+        word_mapping=wm, optim=tcfg.optim)
+    if loaded is not None:
+        opt_np, infos, histories2 = loaded
         iteration = infos.get("iter", 0)
         epoch = infos.get("epoch", 0)
         histories = histories2 or histories

@@ -6,7 +6,8 @@ packages build identical data from one seed.
   file (and so no h5py, which the card's machine lacks).
 * ``generate_dataset``: a miniature dataset in the reference's on-disk
   format (vocab json, label h5, scene-graph and sub-graph-mask npz
-  directories, name npys), for the loaders and CLIs; it needs h5py.
+  directories, name npys), for the loaders and CLIs; it needs h5py for
+  the reference's h5 label file, and none with ``label_format="npz"``.
 """
 from __future__ import annotations
 
@@ -61,14 +62,20 @@ def generate_dataset(root: str, n_images: int = 12, vocab_size: int = 60,
                      n_obj_classes: int = 30, n_rel_classes: int = 10,
                      max_obj: int = 36, max_rel: int = 64, n_subgraphs: int = 8,
                      seq_length: int = 16, feat_dim: int = 2048,
-                     seed: int = 0, min_obj: int = 6) -> dict:
+                     seed: int = 0, min_obj: int = 6,
+                     label_format: str = "h5") -> dict:
     """Write a synthetic dataset under ``root``; returns a path manifest.
 
     Images route 3:1:1 to train / val / test by index; each has
     ``min_obj``..``max_obj`` detections, 8..``max_rel`` relations, 5 GT
     captions and a bank of 5 GT-noun + ``n_subgraphs`` sampled sub-graphs.
-    The JAX generator's ``learnable`` captions are not copied."""
-    import h5py
+    The JAX generator's ``learnable`` captions are not copied.  The label
+    file is the reference's h5 (which needs h5py), or with
+    ``label_format="npz"`` the same arrays in an npz that the port's
+    loaders read without h5py (the JAX package reads only the h5)."""
+    if label_format not in ("h5", "npz"):
+        raise ValueError(f"label_format must be 'h5' or 'npz', not "
+                         f"{label_format!r}")
 
     rng = np.random.RandomState(seed)
     sg_dir = os.path.join(root, "sg_output_64")
@@ -130,11 +137,19 @@ def generate_dataset(root: str, n_images: int = 12, vocab_size: int = 60,
     input_json = os.path.join(root, "talk.json")
     with open(input_json, "w") as f:
         json.dump({"ix_to_word": ix_to_word, "images": images}, f)
-    input_h5 = os.path.join(root, "talk_label.h5")
-    with h5py.File(input_h5, "w") as h5:
-        h5["labels"] = np.stack(all_labels)
-        h5["label_start_ix"] = np.asarray(start_ix, np.int64)
-        h5["label_end_ix"] = np.asarray(end_ix, np.int64)
+    label_arrays = {"labels": np.stack(all_labels),
+                    "label_start_ix": np.asarray(start_ix, np.int64),
+                    "label_end_ix": np.asarray(end_ix, np.int64)}
+    if label_format == "npz":
+        input_h5 = os.path.join(root, "talk_label.npz")
+        np.savez(input_h5, **label_arrays)
+    else:
+        import h5py
+
+        input_h5 = os.path.join(root, "talk_label.h5")
+        with h5py.File(input_h5, "w") as h5:
+            for k, v in label_arrays.items():
+                h5[k] = v
     obj_name_path = os.path.join(root, "object_names.npy")
     rel_name_path = os.path.join(root, "predicate_names.npy")
     np.save(obj_name_path, np.array(

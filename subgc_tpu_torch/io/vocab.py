@@ -10,8 +10,12 @@ import numpy as np
 class CaptionDataset:
     """In-memory view of cocotalk.json + cocotalk_label.h5.
 
-    ``h5py`` is imported only here, when a label file is read: the port's
-    other paths run where it is not installed."""
+    ``h5py`` is imported only here, when an h5 label file is read: the
+    port's other paths run where it is not installed.  A label file named
+    ``*.npz`` holding the same three arrays (``labels``,
+    ``label_start_ix``, ``label_end_ix``) is read with numpy instead, so a
+    dataset runs where h5py is missing (``data/synthetic.py``'s
+    ``generate_dataset(..., label_format="npz")`` writes one)."""
 
     def __init__(self, input_json: str, input_label_h5: str):
         with open(input_json) as f:
@@ -20,12 +24,16 @@ class CaptionDataset:
         self.vocab_size = len(self.ix_to_word)
         self.images: List[dict] = self.info["images"]
 
-        import h5py
+        names = ("labels", "label_start_ix", "label_end_ix")
+        if input_label_h5.endswith(".npz"):
+            with np.load(input_label_h5, allow_pickle=False) as z:
+                arrays = [z[k] for k in names]
+        else:
+            import h5py
 
-        with h5py.File(input_label_h5, "r") as h5:
-            self.labels = h5["labels"][:]
-            self.label_start_ix = h5["label_start_ix"][:]
-            self.label_end_ix = h5["label_end_ix"][:]
+            with h5py.File(input_label_h5, "r") as h5:
+                arrays = [h5[k][:] for k in names]
+        self.labels, self.label_start_ix, self.label_end_ix = arrays
         self.seq_length = self.labels.shape[1]
         self.num_images = self.label_start_ix.shape[0]
 

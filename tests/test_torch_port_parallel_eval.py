@@ -14,6 +14,11 @@ JAX package's ``run_test_split`` over its 8-device mesh
 * top-k sampling (Sub_GC_S_MRNN): the tokens do not depend on the shard
   count or axis (every shard draws the unsharded row shape and keeps its
   rows);
+* attention capture (Sub_GC_Flickr_GRD, ``return_att`` with a grounding
+  collector) and diverse groups (Sub_GC_Kar at beam 2 in 2 groups,
+  ``diversity_lambda`` 0.5) on both axes over 2 and 4 entries: captions,
+  keep sets, the collector's attention weights (rtol 1e-4 / atol 1e-6, as
+  the JAX package's sharded test holds them) and its grounding entries;
 * the runner's two ``ValueError``s, with the JAX runner's messages.
 """
 import jax
@@ -25,6 +30,7 @@ import subgc_tpu.config as JC
 import subgc_tpu_torch as P
 from subgc_tpu.data.dataset import EvalLoader as JEvalLoader
 from subgc_tpu.data.synthetic import generate_dataset
+from subgc_tpu.eval import grounding as JGrd
 from subgc_tpu.eval.runner import run_test_split as j_run_test_split
 from subgc_tpu.parallel.mesh import make_mesh as j_make_mesh
 from subgc_tpu_torch.models.params import init_params_numpy
@@ -36,7 +42,8 @@ WIDTHS = dict(vocab_size=50, rnn_size=64, input_encoding_size=48,
               att_hid_size=32, gcn_dim=40, fc_feat_size=64,
               att_feat_size=80, embed_dim=20, num_obj_classes=30,
               num_rel_classes=10)
-BUCKETS = {"Sub_GC_Kar": 16, "Sub_GC_MRNN": 12, "Sub_GC_S_MRNN": 12}
+BUCKETS = {"Sub_GC_Kar": 16, "Sub_GC_MRNN": 12, "Sub_GC_S_MRNN": 12,
+           "Sub_GC_Flickr_GRD": 16}
 
 
 @pytest.fixture(scope="module")
@@ -68,11 +75,13 @@ def setups(synth):
     return out
 
 
-def _port_run(setup, batch_images, mesh=None, axis="image"):
-    cfg, ecfg, loader, tp, ts = setup
-    return P.run_test_split(tp, ts, loader, cfg, ecfg, loader.vocab,
+def _port_run(setup, batch_images, mesh=None, axis="image", ecfg=None,
+              collect=None):
+    cfg, pecfg, loader, tp, ts = setup
+    return P.run_test_split(tp, ts, loader, cfg, ecfg or pecfg, loader.vocab,
                             verbose=False, batch_images=batch_images,
-                            device="cpu", mesh=mesh, shard_axis=axis)
+                            device="cpu", mesh=mesh, shard_axis=axis,
+                            collect_grounding=collect)
 
 
 def _same(preds, want):
@@ -134,3 +143,81 @@ def test_shard_axis_errors_match_the_jax_runner(setups):
         with pytest.raises(ValueError, match=msg):
             j_run_test_split(params, state, jloader, jcfg, jecfg,
                              jloader.vocab, verbose=False, **jkw)
+
+
+class Recorder:
+    """A grounding collector (either package's ``GroundingCollector``) that
+    also keeps every call's image, captions, keep set and attention
+    weights."""
+
+    def __init__(self, collector):
+        self.collector, self.calls = collector, []
+
+    def __call__(self, ex, sents, sorted_ind, att, order):
+        self.calls.append((ex.info.id, tuple(sents),
+                           tuple(int(i) for i in sorted_ind),
+                           None if att is None else np.asarray(att)))
+        self.collector(ex, sents, sorted_ind, att, order)
+
+
+def _grounding_tables(loader):
+    words = list(loader.vocab.values())
+    lemma_det = {w: i for i, w in enumerate(words[:10])}
+    img_wh = {loader.ds.images[ix]["id"]: (640, 480)
+              for ix in loader.split_ix["test"]}
+    return ({w: w for w in words}, lemma_det,
+            {i: w for w, i in lemma_det.items()}, img_wh)
+
+
+def _same_grounding(got, want):
+    assert len(got.calls) == len(want.calls) > 0
+    for (ia, sa, ka, aa), (ib, sb, kb, ab) in zip(got.calls, want.calls):
+        assert (ia, sa, ka) == (ib, sb, kb)
+        assert aa is not None and ab is not None
+        np.testing.assert_allclose(aa, ab, rtol=1e-4, atol=1e-6)
+    assert dict(got.collector.output) == dict(want.collector.output)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("axis", ["image", "subgraph"])
+def test_sharded_grounding_matches_unsharded_and_jax(setups, axis, n):
+    jside, pside = setups["Sub_GC_Flickr_GRD"]
+    assert pside[1].return_att and pside[1].beam_size == 1
+    tables = _grounding_tables(pside[2])
+    batch_images = 4 if axis == "image" else 3
+    want_rec = Recorder(P.GroundingCollector(*tables))
+    want, _, _ = _port_run(pside, batch_images, collect=want_rec)
+    got_rec = Recorder(P.GroundingCollector(*tables))
+    got, _, _ = _port_run(pside, batch_images, cpu_mesh(n), axis,
+                          collect=got_rec)
+    _same(got, want)
+    _same_grounding(got_rec, want_rec)
+    jcfg, jecfg, jloader, params, state = jside
+    j_rec = Recorder(JGrd.GroundingCollector(*tables))
+    jpreds, _, _ = j_run_test_split(
+        params, state, jloader, jcfg, jecfg, jloader.vocab, verbose=False,
+        batch_images=batch_images, mesh=j_make_mesh(n_data=n),
+        shard_axis=axis, collect_grounding=j_rec)
+    _same(got, jpreds)
+    _same_grounding(got_rec, j_rec)
+    assert sum(len(e[0]["clss"]) for e in got_rec.collector.output.values())
+
+
+DIVERSE = dict(beam_size=2, group_size=2, diversity_lambda=0.5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("axis", ["image", "subgraph"])
+def test_sharded_diverse_groups_match_unsharded_and_jax(setups, axis, n):
+    jside, pside = setups["Sub_GC_Kar"]
+    ecfg = pside[1].replace(**DIVERSE)
+    batch_images = 4 if axis == "image" else 3
+    want, _, _ = _port_run(pside, batch_images, ecfg=ecfg)
+    got, _, _ = _port_run(pside, batch_images, cpu_mesh(n), axis, ecfg=ecfg)
+    _same(got, want)
+    jcfg, jecfg, jloader, params, state = jside
+    jpreds, _, _ = j_run_test_split(
+        params, state, jloader, jcfg, jecfg.replace(**DIVERSE),
+        jloader.vocab, verbose=False, batch_images=batch_images,
+        mesh=j_make_mesh(n_data=n), shard_axis=axis)
+    _same(got, jpreds)
