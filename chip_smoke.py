@@ -133,7 +133,15 @@ while the test params are on the card, and 20 after 16:
     rounded to bf16, rtol 1e-2; the per-row one at the grounding path's
     R=160 and the val pass's R=320, float32 tolerances (its math is
     float32); ms, plain ms, the bound with bf16 bytes and the bf16
-    tensor-core peak, and the same bytes with the float32 peak;
+    tensor-core peak, and the same bytes with the float32 peak; each
+    entry's two stages (the tensor-core projection, the attention kernel)
+    timed apart with CUDA events (the projection alone at the entry's
+    plan, the entry less it) and, where the card's trace holds them, from
+    a ``torch.profiler`` trace; the bf16 projection alone
+    at Q=320, 2000, 160 and 3 against its plain version (rtol / atol 1e-5)
+    beside ``torch.addmm`` in bf16 (printed as a
+    ``{"projection_stage_bf16": [...]}`` line with the card's name and
+    power limit);
 18. Sub_GC_Kar in bf16 + bf16 gates (bench.py's decode configuration) on
     phase 4's 64 images: the shared bf16 kernel exactly dispatches x
     seq_length times and no other; captions checked as in 4, captions/s;
@@ -379,38 +387,81 @@ def row_attention_bound_ms(R, Hin, N, H, D, bf16=False, peak=None):
     return _bound(nbytes, ops, peak or (BF16_PEAK if bf16 else F32_PEAK))
 
 
-def project_bound_ms(Q, Hin, H):
+def project_bound_ms(Q, Hin, H, bf16=False):
     """Least time for the projection stage alone (h @ wh + bh), counted as
-    attention_bound_ms counts it."""
-    nbytes = 4 * (Q * Hin + Hin * H + H + Q * H)
-    t_bytes, t_ops = nbytes / HBM_RATE, 2 * Q * Hin * H / F32_PEAK
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                       else "operations")
+    attention_bound_ms counts it (``bf16``: h and wh of 2 bytes, the bf16
+    tensor-core peak)."""
+    s = 2 if bf16 else 4
+    nbytes = s * (Q * Hin + Hin * H) + 4 * (H + Q * H)
+    return _bound(nbytes, 2 * Q * Hin * H, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def check_projection(params, Q, seed=0):
+def stage_ms(whole_ms, project, fn, runs=20):
+    """Each bf16 entry's two stages, read two ways.  CUDA events
+    (``cuda_ms``): the projection alone at the entry's plan (``project()``,
+    the tensor-core kernel and its split-sum kernel, whose sum the entry
+    leaves to its attention kernel) as "project_ms", and the entry's
+    ``whole_ms`` less that as "attend_ms".  ``torch.profiler``: the median
+    device span of each kernel ``fn()`` launches over ``runs`` calls, as
+    "project_prof_ms" and "attend_prof_ms"; in the bf16 entries the
+    attention kernel starts while the projection runs (a programmatic
+    dependent launch), so its span includes its wait.  A card whose tracing
+    delivers no kernel (CUPTI in a sandbox may not) leaves the profiler's
+    two None: they are a reading beside the events, not a check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    project_ms = cuda_ms(project)
+    res = {"project_ms": project_ms, "attend_ms": whole_ms - project_ms,
+           "project_prof_ms": None, "attend_prof_ms": None}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = {"project": [], "attend": []}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for stage in spans:
+            if stage in e.name:
+                spans[stage].append(e.time_range.elapsed_us() / 1e3)
+    if all(spans.values()):
+        res.update({f"{k}_prof_ms": statistics.median(v)
+                    for k, v in spans.items()})
+    return res
+
+
+def check_projection(params, Q, seed=0, bf16=False):
     """The projection stage (``attention_project``) against its plain
     version on the card (rtol / atol 1e-5), timed beside one library call,
-    ``torch.addmm(bh, h, wh)``, which the port never calls."""
+    ``torch.addmm(bh, h, wh)`` (with ``bf16`` h and wh in bfloat16, the
+    tensor-core kernel, and ``torch.addmm`` in bf16), which the port never
+    calls."""
     import torch
     from subgc_tpu_torch.ops import attention as A
     dec = params["decoder"]
     wh, bh = dec["h2att"]["w"], dec["h2att"]["b"]
     g = torch.Generator(device=wh.device).manual_seed(seed)
     h = torch.rand((Q, wh.shape[0]), generator=g, device=wh.device) * 2 - 1
+    lib_bh = bh
+    if bf16:
+        h, wh, lib_bh = h.to(torch.bfloat16), wh.to(torch.bfloat16), \
+            bh.to(torch.bfloat16)
     ah = A.attention_project(h, wh, bh)
     ref = A.attention_project_ref(h, wh, bh)
     err = (ah - ref).abs()
     if (err > 1e-5 + 1e-5 * ref.abs()).any():
         fail(f"attention_project Q={Q} disagrees with its plain version: max "
              f"|d| {err.max().item():.3g}")
-    bound = project_bound_ms(Q, *wh.shape)
+    bound = project_bound_ms(Q, *wh.shape, bf16=bf16)
     res = {"max_abs_err": err.max().item(),
            "ms": cuda_ms(lambda: A.attention_project(h, wh, bh)),
            "plain_ms": cuda_ms(lambda: A.attention_project_ref(h, wh, bh)),
-           "library_ms": cuda_ms(lambda: torch.addmm(bh, h, wh)),
+           "library_ms": cuda_ms(lambda: torch.addmm(lib_bh, h, wh)),
            "bound_ms": bound[0], "bound_by": bound[1]}
-    print(f"projection stage Q={Q:4d} {A.project_plan(Q, *wh.shape)}: kernel "
+    plan = (A.project_plan_bf16 if bf16 else A.project_plan)(Q, *wh.shape)
+    print(f"projection stage{' bf16' if bf16 else ''} Q={Q:4d} {plan}: kernel "
           f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, torch.addmm "
           f"{res['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
           f"max |err| {res['max_abs_err']:.3g}")
@@ -482,7 +533,7 @@ def check_attention(params, layout, S, G, seed=0, beams=2, bf16=False):
     x = attention_inputs(params, layout, S, G, seed, beams, bf16)
     _, B, R = x[0].shape
     G_, N, H = x[1].shape
-    plan = A.attention_plan(S, B, G_, R, H)
+    plan = A.attention_plan(S, B, G_, R, H, bf16=bf16)
     dims = (S, B, R, G_, N, H, x[2].shape[-1])
     res = compare_and_time(
         f"attention kernel{' bf16' if bf16 else ''} {layout:8s} S={S:4d} "
@@ -493,6 +544,10 @@ def check_attention(params, layout, S, G, seed=0, beams=2, bf16=False):
     if bf16:
         res["bound_f32_peak_ms"] = attention_bound_ms(
             *dims, bf16=True, peak=F32_PEAK)[0]
+        h2 = x[0].reshape(-1, R)
+        res.update(stage_ms(
+            res["ms"], lambda: A.run_attention_project(h2, x[5], x[6], plan),
+            lambda: A.shared_attention(*x)))
     return res
 
 
@@ -517,7 +572,7 @@ def check_row_attention(params, R, seed=0, bf16=False):
     if bf16:
         x = [t.to(torch.bfloat16) if i in (0, 1, 2, 4, 6) else t
              for i, t in enumerate(x)]
-    plan = A.attention_plan(R, 1, R, Hin, H)
+    plan = A.attention_plan(R, 1, R, Hin, H, bf16=bf16)
     res = compare_and_time(
         f"row attention kernel{' bf16' if bf16 else ''} R={R:4d} {plan}",
         A.row_attention, A.row_attention_ref, x,
@@ -525,6 +580,10 @@ def check_row_attention(params, R, seed=0, bf16=False):
     if bf16:
         res["bound_f32_peak_ms"] = row_attention_bound_ms(
             R, Hin, n, H, D, bf16=True, peak=F32_PEAK)[0]
+        res.update(stage_ms(
+            res["ms"],
+            lambda: A.run_attention_project(x[0], x[4], x[5], plan),
+            lambda: A.row_attention(*x)))
     return res
 
 
@@ -1528,12 +1587,15 @@ def run_train(params_np, state_np):
 BF16_MODEL = dict(compute_dtype="bfloat16", bf16_lstm_gates=True)
 
 
-def run_bf16_kernels(params, S_main, S_val):
+def run_bf16_kernels(params, S_main, S_val, card):
     """Phase 17: both bf16 variants against their plain versions on the
     card at the main paths' shapes: Sub_GC_Kar's (S_main rows) in both
     beam layouts, the M-RNN fan-out, Full_GC_Kar's one row of 3 beams, the
-    grounding path's rows and the val pass's (S_val).  Returns (shared
-    checks, row checks), the main path's shape first."""
+    grounding path's rows and the val pass's (S_val); each entry's two
+    stages timed apart; the bf16 projection alone at those paths' query
+    counts beside ``torch.addmm`` in bf16.  Returns (shared checks, row
+    checks, projection checks), the main path's shape first."""
+    print(f"bf16 kernels on {card}:")
     shared = [check_attention(params, "image", S_main, BATCH_IMAGES,
                               seed=50, bf16=True),
               check_attention(params, "subgraph", S_main, S_main, seed=51,
@@ -1547,8 +1609,19 @@ def run_bf16_kernels(params, S_main, S_val):
     for c in shared + row:
         print(f"  bf16 bound {c['bound_ms']:.4f} ms ({c['bound_by']}); "
               f"with its operations at the float32 peak "
-              f"{c['bound_f32_peak_ms']:.4f} ms")
-    return shared, row
+              f"{c['bound_f32_peak_ms']:.4f} ms; stages (CUDA events): "
+              f"projection alone {c['project_ms']:.4f} ms, attention "
+              f"(entry less it) {c['attend_ms']:.4f} ms; (profiler): "
+              + ("not measured, the trace held no kernel of a stage"
+                 if c["project_prof_ms"] is None else
+                 f"projection {c['project_prof_ms']:.4f} ms, attention "
+                 f"{c['attend_prof_ms']:.4f} ms"))
+    qs = (2 * S_main, 2000, S_main, 3)
+    projections = [check_projection(params, Q, seed=56 + i, bf16=True)
+                   for i, Q in enumerate(qs)]
+    print(json.dumps({"projection_stage_bf16": [
+        {"Q": Q, **p} for Q, p in zip(qs, projections)], "card": card}))
+    return shared, row, projections
 
 
 def bf16_decode_step_err(params, cpu_params, state, examples, cfg, ecfg):
@@ -3644,7 +3717,8 @@ def main():
     # the card: both bf16 kernels alone, Sub_GC_Kar and Sub_GC_Flickr_GRD
     _, tcfg, _ = build_configs("Sub_GC_Kar", mode="train")
     S_val = tcfg.seq_per_img * tcfg.batch_size
-    bf16_shared, bf16_row = run_bf16_kernels(params, S_main, S_val)
+    bf16_shared, bf16_row, _ = run_bf16_kernels(params, S_main, S_val,
+                                                card)
     bf16_launches, bf16_test = run_bf16_test(params, cpu_params, state,
                                              examples, vocab, preds)
     bf16_grd_launches = run_bf16_grounding(params, cpu_params, state,

@@ -19,12 +19,13 @@ attention-capture layout of the grounding decode) replaces the TPU kernel
 one beam with row r reading stream r.
 
 Both wrappers launch two kernels: :func:`attention_project`'s staged
-float32 projection ``h @ wh`` (split over k where the tiles alone would not
-fill the card, into a ``[splits, Q, H]`` scratch), then the attention kernel,
+projection ``h @ wh`` (float32 on the CUDA cores, bfloat16 on the tensor
+cores with float32 sums; split over k where the tiles alone would not fill
+the card, into a ``[splits, Q, H]`` scratch), then the attention kernel,
 which adds the partials and ``bh``.  What bounds each and what the design
 does about it is written at the top of the CUDA source.  The tile plan
-(:func:`project_plan`, :func:`attention_plan`) is chosen here, so that the
-CPU tests can check it.
+(:func:`project_plan`, :func:`project_plan_bf16`, :func:`attention_plan`)
+is chosen here, so that the CPU tests can check it.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 raises.  Each launcher makes the tensors' card current around its launch
@@ -94,6 +95,10 @@ TILE_COLS = (64, 128)
 MAX_QUERIES_PER_BLOCK = 16
 MAX_SPLITS = 8
 MIN_SLICES_PER_SPLIT = 4
+# the bf16 projection on the tensor cores (project_tc_kernel)
+K_SLICE_BF16 = 32       # k per ring slice (kBKt): two mma k-steps of 16
+TILE_ROWS_BF16 = (16, 32, 64, 128)
+MAX_SPLITS_BF16 = 16
 
 _FNS = {}
 _LOCK = threading.Lock()
@@ -143,6 +148,40 @@ def project_plan(Q, Hin, H, bm=None, bn=64, splits=None):
     return Plan(bm, bn, _cdiv(Hin, kchunk), kchunk)
 
 
+def project_plan_bf16(Q, Hin, H, bm=None, bn=64, splits=None):
+    """Tiles and k split of the bf16 tensor-core projection for Q queries.
+
+    Tiles of ``bm`` queries (a multiple of the mma's 16 rows: 16 up to 16
+    queries, 32 up to 256, 64 up to 1024, else 128) x ``bn`` columns; k in
+    whole slices of :data:`K_SLICE_BF16` (a multiple of 16), split until
+    there are ~2 blocks per SM (at most :data:`MAX_SPLITS_BF16` splits, at
+    least one slice each), so that Q = 3 fills the card as Q = 2000 does.
+    ``bm``, ``bn`` and ``splits`` override the choice; the split count is
+    trimmed so that no split is empty.  Raises ValueError on a shape or a
+    tile the kernel does not take.
+    """
+    if min(Q, Hin, H) < 1:
+        raise ValueError(f"project_plan_bf16: Q={Q}, Hin={Hin}, H={H} must "
+                         f"be positive")
+    if bn not in TILE_COLS:
+        raise ValueError(f"project_plan_bf16: bn={bn} not in {TILE_COLS}")
+    if bm is None:
+        bm = (16 if Q <= 16 else 32 if Q <= 256 else 64 if Q <= 1024
+              else 128)
+    if bm not in TILE_ROWS_BF16:
+        raise ValueError(f"project_plan_bf16: bm={bm} not in "
+                         f"{TILE_ROWS_BF16}")
+    slices = _cdiv(Hin, K_SLICE_BF16)
+    if splits is None:
+        tiles = _cdiv(Q, bm) * _cdiv(H, bn)
+        splits = max(1, min(2 * SMS // tiles, MAX_SPLITS_BF16))
+    elif splits < 1:
+        raise ValueError(f"project_plan_bf16: splits={splits} < 1")
+    splits = min(splits, slices)
+    kchunk = _cdiv(slices, splits) * K_SLICE_BF16
+    return Plan(bm, bn, _cdiv(Hin, kchunk), kchunk)
+
+
 def rows_per_block(S, B, G):
     """Rows per attention block: 1 where rows have streams of their own;
     where several rows share a stream, the most (a power of two, at most
@@ -154,10 +193,12 @@ def rows_per_block(S, B, G):
     return rpb
 
 
-def attention_plan(S, B, G, Hin, H, **project):
+def attention_plan(S, B, G, Hin, H, bf16=False, **project):
     """The whole launch plan of :func:`shared_attention` (``G = S`` with
-    one beam for :func:`row_attention`)."""
-    return project_plan(S * B, Hin, H, **project)._replace(
+    one beam for :func:`row_attention`); ``bf16``: the bfloat16 entries'
+    projection plan (:func:`project_plan_bf16`)."""
+    plan = project_plan_bf16 if bf16 else project_plan
+    return plan(S * B, Hin, H, **project)._replace(
         rows_per_block=rows_per_block(S, B, G))
 
 
@@ -313,7 +354,8 @@ def attention_project(h, wh, bh):
         return attention_project_ref(h, wh, bh)
     _device_check("attention_project", h)
     Q, Hin, H = _check_project(h, wh, bh)
-    return run_attention_project(h, wh, bh, project_plan(Q, Hin, H))
+    plan = project_plan_bf16 if h.dtype == BF16 else project_plan
+    return run_attention_project(h, wh, bh, plan(Q, Hin, H))
 
 
 # ---- beam-shared attention
@@ -410,7 +452,8 @@ def shared_attention(h, p_att, att, mask, idx, wh, bh, v, bv):
         return shared_attention_ref(*args)
     _device_check("shared_attention", h)
     S, B, R, G, N, H, D = _check(*args)
-    return run_shared_attention(args, attention_plan(S, B, G, R, H))
+    return run_shared_attention(args, attention_plan(
+        S, B, G, R, H, bf16=p_att.dtype == BF16))
 
 
 # ---- per-row attention
@@ -492,4 +535,5 @@ def row_attention(h, p_att, att, mask, wh, bh, v, bv):
         return row_attention_ref(*args)
     _device_check("row_attention", h)
     R, Hin, N, H, D = _check_rows(*args)
-    return run_row_attention(args, attention_plan(R, 1, R, Hin, H))
+    return run_row_attention(args, attention_plan(
+        R, 1, R, Hin, H, bf16=p_att.dtype == BF16))

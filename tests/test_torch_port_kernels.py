@@ -399,19 +399,21 @@ def test_bf16_kernel_matches_plain_on_card(layout, beams):
 @pytest.mark.parametrize("layout", ["image", "subgraph"])
 @pytest.mark.parametrize("knobs", [
     dict(splits=1), dict(splits=4), dict(bm=32, bn=128, splits=2),
-    dict(rows_per_block=4)])
-@pytest.mark.parametrize("dims", [dict(H=52, D=68), dict(H=64, D=66)])
+    dict(bm=16, bn=128, splits=3), dict(rows_per_block=4)])
+@pytest.mark.parametrize("dims", [dict(H=52, D=68), dict(H=64, D=66),
+                                  dict(H=64, D=72)])
 def test_bf16_kernel_plans_match_plain_on_card(layout, knobs, dims):
-    """Plans as in float32, at widths off the vector paths: a p_att row of
-    104 bytes (no bulk copy) and an att row of 66 values (no 4-value
-    loads)."""
+    """Plans of the tensor-core projection, at widths off the vector paths:
+    a p_att row of 104 bytes (no bulk copy), att rows of 66 and 68 values
+    (no 16-byte loads), and at H=64, D=72 on them; Hin = 130 (no 16-byte
+    copies of h)."""
     _cuda()
     x = [t.cuda() for t in _to_bf16(_inputs(
         layout, S=41, B=2, G=5, R=130, seed=len(knobs), **dims),
         SHARED_STREAMS)]
     knobs = dict(knobs)
     rpb = knobs.pop("rows_per_block", 1)
-    plan = A.project_plan(82, 130, dims["H"], **knobs)._replace(
+    plan = A.project_plan_bf16(82, 130, dims["H"], **knobs)._replace(
         rows_per_block=rpb)
     _close_bf16_shared(*A.run_shared_attention(x, plan),
                        *A.shared_attention_ref(*x))
@@ -420,10 +422,12 @@ def test_bf16_kernel_plans_match_plain_on_card(layout, knobs, dims):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     dict(R=1), dict(R=9), dict(R=160, Hin=1000, H=512, D=1000),
+    dict(R=100, Hin=1000, H=512, D=1000),
     dict(R=37, Hin=130, H=50, D=70), dict(R=300, Hin=96, H=200, D=128)])
 def test_bf16_row_kernel_matches_plain_on_card(shape):
     """bf16 streams, float32 math in both (``_attention_kernel``'s
-    promotion): the float32 tolerances."""
+    promotion): the float32 tolerances.  R = 100 gives each block an SM of
+    its own, so its blocks take twice the threads."""
     _cuda()
     x = [t.cuda() for t in _to_bf16(_row_inputs(seed=shape["R"], **shape),
                                     ROW_STREAMS)]
@@ -436,16 +440,24 @@ def test_bf16_row_kernel_matches_plain_on_card(shape):
     torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
 
 
+# the tensor-core projection: every tile (16-128 rows, 64 or 128 columns),
+# Q off a multiple of the tile, Hin and H off multiples of 8 (no 16-byte
+# copies) and of 16, the full-width query counts of the decode (3, 160,
+# 320, 2000), split on and off
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,Hin,H,knobs", [
     (1, 64, 32, {}), (37, 130, 50, {}), (37, 130, 50, dict(splits=3)),
     (200, 1000, 512, dict(splits=5)), (130, 1000, 200, dict(bm=128, bn=128)),
-    (320, 1000, 512, {})])
+    (320, 1000, 512, {}), (3, 1000, 512, {}), (160, 1000, 512, {}),
+    (2000, 1000, 512, {}), (70, 18, 130, dict(bm=16, bn=128, splits=1)),
+    (45, 33, 520, dict(bm=32)), (300, 96, 200, dict(bm=64, bn=128)),
+    (17, 1000, 512, dict(bm=16, splits=16))])
 def test_bf16_project_kernel_matches_plain_on_card(Q, Hin, H, knobs):
     _cuda()
     x = [t.cuda() for t in _project_inputs(Q, Hin, H, seed=Q)]
     x[0], x[1] = x[0].to(BF16), x[1].to(BF16)
-    ah = A.run_attention_project(*x, A.project_plan(Q, Hin, H, **knobs))
+    ah = A.run_attention_project(*x, A.project_plan_bf16(Q, Hin, H,
+                                                         **knobs))
     torch.cuda.synchronize()
     assert ah.dtype == torch.float32
     torch.testing.assert_close(ah, A.attention_project_ref(*x), rtol=1e-5,
@@ -453,19 +465,31 @@ def test_bf16_project_kernel_matches_plain_on_card(Q, Hin, H, knobs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["shared", "row", "project"])
+@pytest.mark.parametrize("op", ["shared", "row", "project", "shared_fullgc",
+                                "shared_fanout", "project_q3"])
 def test_bf16_kernels_repeat_bitwise_on_card(op):
+    """Two launches give the same bits: the tensor-core projection's splits
+    are summed in split order, with no atomics, at 16 splits (Q = 3) too."""
     _cuda()
     if op == "shared":
         x = _to_bf16(_inputs("image", S=160, B=2, G=16, R=1000, H=512,
                              D=1000, seed=9), SHARED_STREAMS)
+        fn = A.shared_attention
+    elif op == "shared_fullgc":
+        x = _to_bf16(_inputs("subgraph", S=1, B=3, R=1000, H=512, D=1000,
+                             seed=10), SHARED_STREAMS)
+        fn = A.shared_attention
+    elif op == "shared_fanout":
+        x = _to_bf16(_inputs("image", S=2000, B=1, G=2, R=1000, H=512,
+                             D=1000, seed=11), SHARED_STREAMS)
         fn = A.shared_attention
     elif op == "row":
         x = _to_bf16(_row_inputs(R=160, Hin=1000, H=512, D=1000, seed=9),
                      ROW_STREAMS)
         fn = A.row_attention
     else:
-        x = _to_bf16(_project_inputs(320, 1000, 512, seed=9), (0, 1))
+        Q = 3 if op == "project_q3" else 320
+        x = _to_bf16(_project_inputs(Q, 1000, 512, seed=9), (0, 1))
         fn = A.attention_project
     x = [t.cuda() for t in x]
     first, second = fn(*x), fn(*x)
@@ -473,6 +497,65 @@ def test_bf16_kernels_repeat_bitwise_on_card(op):
     for a, b in zip(first if op != "project" else [first],
                     second if op != "project" else [second]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,S,G,B", [
+    ("image", 160, 16, 2), ("subgraph", 160, 160, 2), ("image", 2000, 2, 1),
+    ("subgraph", 1, 1, 3), ("image", 80, 8, 2)])
+def test_bf16_kernel_matches_plain_at_full_width_on_card(layout, S, G, B):
+    """The decode's bf16 shapes at full width (Hin = D = 1000, H = 512):
+    Sub_GC_Kar in both beam layouts, the M-RNN fan-out, Full_GC_Kar's three
+    beams, a serving dispatch; the 16-byte paths of both kernels, and (the
+    last two: no more blocks than SMs) the attention blocks of twice the
+    threads."""
+    _cuda()
+    x = [t.cuda() for t in _to_bf16(_inputs(
+        layout, S=S, B=B, G=G, R=1000, H=512, D=1000, seed=S + B),
+        SHARED_STREAMS)]
+    _close_bf16_shared(*A.shared_attention(*x), *A.shared_attention_ref(*x))
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary: the kernels' 16-byte paths must stand aside."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["shared", "row", "project"])
+def test_bf16_kernels_take_unaligned_rows_on_card(op):
+    """h, wh and the streams off 16-byte alignment (the value-by-value
+    copies of the projection's ring, the unvectorised attention kernel) at
+    full width."""
+    _cuda()
+    if op == "shared":
+        x = [t.cuda() for t in _to_bf16(_inputs(
+            "image", S=40, B=2, G=4, R=1000, H=512, D=1000, seed=12),
+            SHARED_STREAMS)]
+        x = [_unaligned(t) if i in SHARED_STREAMS else t
+             for i, t in enumerate(x)]
+        _close_bf16_shared(*A.shared_attention(*x),
+                           *A.shared_attention_ref(*x))
+    elif op == "row":
+        x = [t.cuda() for t in _to_bf16(_row_inputs(
+            R=40, Hin=1000, H=512, D=1000, seed=12), ROW_STREAMS)]
+        x = [_unaligned(t) if i in ROW_STREAMS else t
+             for i, t in enumerate(x)]
+        out, w = A.row_attention(*x)
+        r_out, r_w = A.row_attention_ref(*x)
+        torch.testing.assert_close(w, r_w, rtol=0, atol=1e-5)
+        torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+    else:
+        x = [t.cuda() for t in _project_inputs(70, 1000, 512, seed=12)]
+        x[0], x[1] = _unaligned(x[0].to(BF16)), _unaligned(x[1].to(BF16))
+        torch.testing.assert_close(A.attention_project(*x),
+                                   A.attention_project_ref(*x), rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -698,3 +781,4 @@ def test_one_rank_nccl_train_step_on_card(tmp_path):
     np.testing.assert_allclose(report["val_loss"], ref["val_loss"],
                                rtol=1e-5)
     assert report["val_launches"]["row"] == cfg.seq_length + 1
+

@@ -10,11 +10,18 @@ package's (``subgc_tpu/ops/native.py``), which builds the same C++ source:
   batch for batch, across an epoch wrap; ``SUBGC_NATIVE_SAMPLER=0`` and
   ``native_sampler=False`` select the Python sampler in both;
 * a build with a missing or failing compiler raises, with nothing to fall
-  back on; processes that build into one fresh directory at once agree.
+  back on; processes that build into one fresh directory at once agree;
+* the module fixture waits for a whole JAX library (``tests/_native_lib.py``)
+  and survives a failed first load: test workers that start at once in a
+  fresh tree race on the JAX package's in-place build.
 """
+import ctypes
 import os
+import shutil
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -29,14 +36,85 @@ from subgc_tpu_torch.eval import pairwise as PP
 from subgc_tpu_torch.ops import _build
 from subgc_tpu_torch.ops import native as N
 
+from ._native_lib import wait_for_native
 from .test_torch_port_metrics import _sentences
 from .test_torch_port_train_cli import _dcfg, data  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_native():
-    """The JAX side must run its C++ cores, not its Python fallbacks."""
+    """The JAX side must run its C++ cores, not its Python fallbacks.  Other
+    test processes may be building its library in place right now, so wait
+    for a whole one first; a library that truly cannot build still fails
+    here."""
+    wait_for_native(JN)
     assert JN.available(), "the JAX package's host library did not build"
+
+
+class _FakeNative:
+    """A library loader with ``subgc_tpu.ops.native``'s memory: one load
+    attempt, remembered until ``_tried`` is cleared."""
+
+    def __init__(self, d):
+        self._NATIVE_DIR = str(d)
+        self._SO_PATH = str(d / "libsubgc_native.so")
+        self._lib, self._tried = None, False
+        (d / "subgc_native.cpp").write_text("// source\n")
+        os.utime(d / "subgc_native.cpp", (0, 0))     # older than any library
+
+    def available(self):
+        if self._lib is None and not self._tried:
+            self._tried = True
+            try:
+                self._lib = ctypes.CDLL(self._SO_PATH)
+            except OSError:
+                pass
+        return self._lib is not None
+
+
+def test_fixture_recovers_the_jax_library_after_a_failed_first_load(
+        monkeypatch):
+    """The race's aftermath: the library is whole on disk, but this process
+    met it half-written and remembers the failure."""
+    monkeypatch.setattr(JN, "_lib", None)
+    monkeypatch.setattr(JN, "_tried", True)
+    assert not JN.available()
+    wait_for_native(JN)
+    assert JN.available()
+    sents = ["a dog in the park", "a cat on a mat", "a dog on a mat"]
+    _bits(JN.mutual_bleu4(sents), PP.mutual_bleu4(sents))
+
+
+def test_wait_outlasts_a_library_still_being_written(tmp_path):
+    """Another process is still writing the library when this one looks:
+    the first load fails, the wait sees the whole library once it lands."""
+    fake = _FakeNative(tmp_path)
+    whole = open(JN._SO_PATH, "rb").read()
+    with open(fake._SO_PATH, "wb") as f:
+        f.write(whole[:100])                        # half-written
+    assert not fake.available() and fake._tried
+
+    def finish():
+        time.sleep(0.5)
+        tmp = fake._SO_PATH + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(whole)
+        os.replace(tmp, fake._SO_PATH)
+
+    writer = threading.Thread(target=finish)
+    writer.start()
+    wait_for_native(fake, timeout=30, poll=0.05)
+    writer.join()
+    assert fake.available()
+    assert fake._lib.subgc_mutual_bleu4 is not None
+
+
+def test_wait_fails_loudly_on_a_library_that_never_loads(tmp_path):
+    fake = _FakeNative(tmp_path)
+    shutil.copyfile(__file__, fake._SO_PATH)        # not a shared library
+    with pytest.raises(AssertionError, match="does not load"):
+        wait_for_native(fake, timeout=0.3, poll=0.05)
+    assert not fake.available()
 
 
 def _bits(a, b):
