@@ -21,6 +21,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
@@ -87,16 +89,17 @@ class BatchPrefetcher:
             self._put(None)
 
     def next(self):
-        item = self.q.get()
-        if item is None:
-            raise RuntimeError("prefetch worker failed") from self._exc
-        dev, event, aux = item
-        if event is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(event)
-            for t in _tensors(dev):
-                t.record_stream(consumer)
-        return dev, aux
+        with span("subgc.train.next_batch"):
+            item = self.q.get()
+            if item is None:
+                raise RuntimeError("prefetch worker failed") from self._exc
+            dev, event, aux = item
+            if event is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(event)
+                for t in _tensors(dev):
+                    t.record_stream(consumer)
+            return dev, aux
 
     def stop(self, timeout: float = 60.0):
         """Stop the producer: drain the queue so a blocked put returns, and

@@ -38,6 +38,7 @@ import torch
 from ..config import EvalConfig, ModelConfig
 from ..models import decoder as D
 from ..utils.penalty import penalty_fn
+from ..utils.profiling import span
 
 
 class BeamOut(NamedTuple):
@@ -96,7 +97,8 @@ def _expand_group(params, feats, gs: _GroupState, t: int, cfg: ModelConfig,
     expand.  ``diversity_tokens`` [S, n]: the tokens earlier groups chose at
     this local time; each occurrence subtracts ``diversity_lambda``."""
     S, bdash, T = gs.beam_seq.shape
-    lp, state, _ = D.decode_step(params, gs.state, gs.token, feats, cfg)
+    with span("subgc.decode.step"):
+        lp, state, _ = D.decode_step(params, gs.state, gs.token, feats, cfg)
     V1 = lp.shape[-1]
 
     logprobsf = lp
@@ -171,33 +173,34 @@ def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     if G < 1 or ecfg.beam_size % G:
         raise ValueError(f"beam_size {ecfg.beam_size} must be a multiple of "
                          f"group_size {G}")
-    params = D.cast_decoder_weights(params, cfg)     # once per call
-    bdash = ecfg.beam_size // G
-    T = cfg.seq_length
-    S = feats.fc.shape[0]
-    device = feats.fc.device
-    if feats.att_img is not None:
-        ai, pi = feats.att_img, feats.p_att_img
-        if ai.dim() == 2:                       # single-image layout
-            ai, pi = ai[None], pi[None]
-        ii = feats.img_ix if feats.img_ix is not None \
-            else torch.zeros((S,), dtype=torch.int64, device=device)
-        feats = feats._replace(att_img=ai, p_att_img=pi, img_ix=ii)
-    pen = penalty_fn(ecfg.length_penalty)
+    with span("subgc.decode"):
+        params = D.cast_decoder_weights(params, cfg)     # once per call
+        bdash = ecfg.beam_size // G
+        T = cfg.seq_length
+        S = feats.fc.shape[0]
+        device = feats.fc.device
+        if feats.att_img is not None:
+            ai, pi = feats.att_img, feats.p_att_img
+            if ai.dim() == 2:                       # single-image layout
+                ai, pi = ai[None], pi[None]
+            ii = feats.img_ix if feats.img_ix is not None \
+                else torch.zeros((S,), dtype=torch.int64, device=device)
+            feats = feats._replace(att_img=ai, p_att_img=pi, img_ix=ii)
+        pen = penalty_fn(ecfg.length_penalty)
 
-    groups = [_init_group(S, bdash, cfg, device) for _ in range(G)]
-    # outer step t: group g is active at local time t - g in [0, T); the
-    # groups update in ascending order, so group g reads groups < g as
-    # this step left them (CaptionModel.py:122-171)
-    for t in range(T + G - 1):
-        for g in range(max(0, t - T + 1), min(G, t + 1)):
-            lt = t - g
-            div = torch.cat([groups[pg].beam_seq[..., lt]
-                             for pg in range(g)], dim=-1) if g else None
-            groups[g] = _expand_group(params, feats, groups[g], lt, cfg,
-                                      ecfg, pen, diversity_tokens=div)
+        groups = [_init_group(S, bdash, cfg, device) for _ in range(G)]
+        # outer step t: group g is active at local time t - g in [0, T); the
+        # groups update in ascending order, so group g reads groups < g as
+        # this step left them (CaptionModel.py:122-171)
+        for t in range(T + G - 1):
+            for g in range(max(0, t - T + 1), min(G, t + 1)):
+                lt = t - g
+                div = torch.cat([groups[pg].beam_seq[..., lt]
+                                 for pg in range(g)], dim=-1) if g else None
+                groups[g] = _expand_group(params, feats, groups[g], lt, cfg,
+                                          ecfg, pen, diversity_tokens=div)
 
-    seqs, lps, ps = zip(*(_top_done(gs, bdash) for gs in groups))
-    all_seqs, all_lps = torch.cat(seqs, 1), torch.cat(lps, 1)
-    return BeamOut(seq=all_seqs[:, 0], logprobs=all_lps[:, 0],
-                   all_seqs=all_seqs, all_ps=torch.cat(ps, 1))
+        seqs, lps, ps = zip(*(_top_done(gs, bdash) for gs in groups))
+        all_seqs, all_lps = torch.cat(seqs, 1), torch.cat(lps, 1)
+        return BeamOut(seq=all_seqs[:, 0], logprobs=all_lps[:, 0],
+                       all_seqs=all_seqs, all_ps=torch.cat(ps, 1))

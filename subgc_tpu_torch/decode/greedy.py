@@ -32,6 +32,7 @@ import torch
 
 from ..config import EvalConfig, ModelConfig
 from ..models import decoder as D
+from ..utils.profiling import span
 
 
 def _topk_mask(lp2: torch.Tensor, k: int) -> torch.Tensor:
@@ -71,34 +72,37 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     depend on the shard count.  Runs without autograd, so params that
     require grad decode as their detached copies do.
     """
-    params = D.cast_decoder_weights(params, cfg)     # once per call
-    S = feats.fc.shape[0]
-    T = cfg.seq_length
-    dev = feats.fc.device
-    if ecfg.use_topk_sampling and generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    with span("subgc.decode"):
+        params = D.cast_decoder_weights(params, cfg)     # once per call
+        S = feats.fc.shape[0]
+        T = cfg.seq_length
+        dev = feats.fc.device
+        if ecfg.use_topk_sampling and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
 
-    state = D.init_state(S, cfg, dev)
-    it = torch.zeros((S,), dtype=torch.int64, device=dev)
-    unfinished = torch.ones((S,), dtype=torch.bool, device=dev)
-    seqs, lps, atts = [], [], []
-    # the final (T-th) step only contributes its attention weights, so it
-    # runs only when the caller captures them
-    for t in range(T + 1 if ecfg.return_att else T):
-        lp, state, att_w = D.decode_step(params, state, it, feats, cfg)
-        if ecfg.use_topk_sampling:
-            lp2 = torch.log_softmax(lp / ecfg.topk_temp, dim=-1)
-            nxt = D.draw_categorical(_topk_mask(lp2, ecfg.the_k), generator,
-                                     rows)
-            chosen = torch.gather(lp2, 1, nxt[:, None])[:, 0]
-        else:
-            nxt = torch.argmax(lp, dim=-1)
-            chosen = torch.gather(lp, 1, nxt[:, None])[:, 0]
-        unfinished = (nxt > 0) if t == 0 else unfinished & (nxt > 0)
-        it = nxt * unfinished
-        seqs.append(it)
-        lps.append(chosen)
-        atts.append(att_w)
-    return SampleOut(seq=torch.stack(seqs[:T], 1),
-                     logprobs=torch.stack(lps[:T], 1),
-                     att_weights=torch.stack(atts, 1))
+        state = D.init_state(S, cfg, dev)
+        it = torch.zeros((S,), dtype=torch.int64, device=dev)
+        unfinished = torch.ones((S,), dtype=torch.bool, device=dev)
+        seqs, lps, atts = [], [], []
+        # the final (T-th) step only contributes its attention weights, so it
+        # runs only when the caller captures them
+        for t in range(T + 1 if ecfg.return_att else T):
+            with span("subgc.decode.step"):
+                lp, state, att_w = D.decode_step(params, state, it, feats,
+                                                 cfg)
+            if ecfg.use_topk_sampling:
+                lp2 = torch.log_softmax(lp / ecfg.topk_temp, dim=-1)
+                nxt = D.draw_categorical(_topk_mask(lp2, ecfg.the_k),
+                                         generator, rows)
+                chosen = torch.gather(lp2, 1, nxt[:, None])[:, 0]
+            else:
+                nxt = torch.argmax(lp, dim=-1)
+                chosen = torch.gather(lp, 1, nxt[:, None])[:, 0]
+            unfinished = (nxt > 0) if t == 0 else unfinished & (nxt > 0)
+            it = nxt * unfinished
+            seqs.append(it)
+            lps.append(chosen)
+            atts.append(att_w)
+        return SampleOut(seq=torch.stack(seqs[:T], 1),
+                         logprobs=torch.stack(lps[:T], 1),
+                         att_weights=torch.stack(atts, 1))

@@ -48,6 +48,7 @@ from ..device import f32_accumulation, resolve_device
 from ..graph import SceneGraph, SubgraphSet, to_device
 from ..models import subgc
 from ..parallel import mesh as M
+from ..utils.profiling import span
 from ..utils.text import decode_sequence
 
 
@@ -177,8 +178,9 @@ def _infer_image_sharded(infer, params, state, graph, subs, mesh,
     """Image-axis dispatch: each mesh device runs ``infer`` on its
     contiguous share of the images (host arrays, placed straight on it);
     the outputs gathered in image order on the first device."""
-    graphs = M.shard_leading_axis(mesh, to_device(graph, "cpu"))
-    subss = M.shard_leading_axis(mesh, to_device(subs, "cpu"))
+    with span("subgc.test.to_device"):
+        graphs = M.shard_leading_axis(mesh, to_device(graph, "cpu"))
+        subss = M.shard_leading_axis(mesh, to_device(subs, "cpu"))
     B = graph.obj_fmap.shape[0]
     starts = np.cumsum([0] + [g.obj_fmap.shape[0] for g in graphs])
     gens = [_fork(generator, d) for d in mesh.devices]
@@ -191,12 +193,68 @@ def _infer_image_sharded(infer, params, state, graph, subs, mesh,
     return M.gather_leading_axis(outs)
 
 
+def _to_device(graph, subs, dev):
+    with span("subgc.test.to_device"):
+        return to_device(graph, dev), to_device(subs, dev)
+
+
 def _stack_examples(examples):
     graph = SceneGraph(*[np.concatenate([getattr(e.graph, f) for e in examples])
                          for f in SceneGraph._fields])
     subs = SubgraphSet(*[np.stack([getattr(e.subs, f) for e in examples])
                          for f in SubgraphSet._fields])
     return graph, subs
+
+
+def _add_predictions(predictions, out, chunk, vocab, ecfg: EvalConfig,
+                     keep_tokens, collect_grounding, vb_rng, verbose) -> int:
+    """Append the predictions of one dispatch's images (``chunk``) from its
+    outputs on the host (``out``) to ``predictions``; returns the number of
+    captions."""
+    n_caps = 0
+    for bi, ex in enumerate(chunk):
+        n = int(out["keep_valid"][bi].sum())
+        seq = out["seq"][bi][:n]
+        scores = out["scores"][bi][:n]
+        keep_ind = out["keep_ind"][bi][:n]
+        if ecfg.sct:
+            # SCT keeps the region sets' order (eval_utils.py:115-120)
+            order = np.arange(n)
+        else:
+            # sort captions by sGPN score desc (eval_utils.py:105-114)
+            order = np.argsort(-scores, kind="stable")
+        sents = decode_sequence(vocab, seq[order],
+                                remove_bad_endings=ecfg.remove_bad_endings)
+        pred = {
+            "image_id": ex.info.id,
+            "caption": sents,
+            "subgraph_score": scores[order],
+            "sorted_subgraph_ind": keep_ind[order],
+        }
+        if keep_tokens:
+            pred["tokens"] = seq[order]
+        predictions.append(pred)
+        n_caps += len(sents)
+        if collect_grounding is not None:
+            att = out.get("att_weights")
+            collect_grounding(ex, sents, keep_ind[order],
+                              att[bi][:n][order] if att is not None
+                              else None, order)
+        if vb_rng is not None and "all_beams" in out and n:
+            # one random kept sub-graph's beams per image
+            # (eval_utils.py:124-130)
+            pick = int(vb_rng.choice(n))
+            beams = decode_sequence(
+                vocab, out["all_beams"][bi][pick],
+                remove_bad_endings=ecfg.remove_bad_endings)
+            print(f"beam search sentences of image {ex.info.id} "
+                  f"(sub-graph {int(out['keep_ind'][bi][pick])}):")
+            print("\n".join(beams))
+            print("--" * 10)
+        if verbose and len(predictions) <= 3:
+            print(f"image {ex.info.id}: kept {n} sub-graphs; best: "
+                  f"{sents[0] if sents else '<none>'!r}")
+    return n_caps
 
 
 @f32_accumulation()
@@ -246,94 +304,62 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
             "(use_gpn=False) has no batched route, in the JAX package's "
             "runner either; decode it per image with encode_image + "
             "beam_search")
-    if mesh is None:
-        dev = resolve_device(device)
-        run = make_batched_infer_fn(cfg, ecfg)
-
-        def dispatch(graph, subs, generator):
-            return run(params, state, to_device(graph, dev),
-                       to_device(subs, dev), generator)
-    else:
-        dev = resolve_device(mesh.devices[0])
-        for d in mesh.devices[1:]:
-            resolve_device(d)
-        params_m = params if isinstance(params, list) \
-            else M.replicate(mesh, params)
-        state_m = state if isinstance(state, list) \
-            else M.replicate(mesh, state)
-        if shard_axis == "subgraph":
-            run = make_batched_infer_fn(cfg, ecfg, mesh=mesh)
-
-            def dispatch(graph, subs, generator):
-                return run(params_m, state_m, to_device(graph, dev),
-                           to_device(subs, dev), generator)
-        else:
+    with span("subgc.test.split"):
+        if mesh is None:
+            dev = resolve_device(device)
             run = make_batched_infer_fn(cfg, ecfg)
 
             def dispatch(graph, subs, generator):
-                return _infer_image_sharded(run, params_m, state_m, graph,
-                                            subs, mesh, generator)
-    generator = torch.Generator(device=dev).manual_seed(2019)
-    examples = list(loader.iter_split(split, num_images))
-    if not examples:
-        return [], 0.0, 0
+                return run(params, state, *_to_device(graph, subs, dev),
+                           generator)
+        else:
+            dev = resolve_device(mesh.devices[0])
+            for d in mesh.devices[1:]:
+                resolve_device(d)
+            params_m = params if isinstance(params, list) \
+                else M.replicate(mesh, params)
+            state_m = state if isinstance(state, list) \
+                else M.replicate(mesh, state)
+            if shard_axis == "subgraph":
+                run = make_batched_infer_fn(cfg, ecfg, mesh=mesh)
 
-    t0 = time.time()
-    predictions: List[dict] = []
-    n_caps = 0
-    # seeded locally, as in the JAX runner: the print-out is reproducible
-    # and the global numpy stream is left alone
-    vb_rng = np.random.RandomState(2019) if ecfg.verbose_beam else None
-    for i in range(0, len(examples), batch_images):
-        chunk = examples[i:i + batch_images]
-        # fixed-size image batches (the last one padded by repetition)
-        padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
-        graph, subs = _stack_examples(padded)
-        out = dispatch(graph, subs, generator)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        for bi, ex in enumerate(chunk):
-            n = int(out["keep_valid"][bi].sum())
-            seq = out["seq"][bi][:n]
-            scores = out["scores"][bi][:n]
-            keep_ind = out["keep_ind"][bi][:n]
-            if ecfg.sct:
-                # SCT keeps the region sets' order (eval_utils.py:115-120)
-                order = np.arange(n)
+                def dispatch(graph, subs, generator):
+                    return run(params_m, state_m,
+                               *_to_device(graph, subs, dev), generator)
             else:
-                # sort captions by sGPN score desc (eval_utils.py:105-114)
-                order = np.argsort(-scores, kind="stable")
-            sents = decode_sequence(vocab, seq[order],
-                                    remove_bad_endings=ecfg.remove_bad_endings)
-            pred = {
-                "image_id": ex.info.id,
-                "caption": sents,
-                "subgraph_score": scores[order],
-                "sorted_subgraph_ind": keep_ind[order],
-            }
-            if keep_tokens:
-                pred["tokens"] = seq[order]
-            predictions.append(pred)
-            n_caps += len(sents)
-            if collect_grounding is not None:
-                att = out.get("att_weights")
-                collect_grounding(ex, sents, keep_ind[order],
-                                  att[bi][:n][order] if att is not None
-                                  else None, order)
-            if vb_rng is not None and "all_beams" in out and n:
-                # one random kept sub-graph's beams per image
-                # (eval_utils.py:124-130)
-                pick = int(vb_rng.choice(n))
-                beams = decode_sequence(
-                    vocab, out["all_beams"][bi][pick],
-                    remove_bad_endings=ecfg.remove_bad_endings)
-                print(f"beam search sentences of image {ex.info.id} "
-                      f"(sub-graph {int(out['keep_ind'][bi][pick])}):")
-                print("\n".join(beams))
-                print("--" * 10)
-            if verbose and len(predictions) <= 3:
-                print(f"image {ex.info.id}: kept {n} sub-graphs; best: "
-                      f"{sents[0] if sents else '<none>'!r}")
-    return predictions, time.time() - t0, n_caps
+                run = make_batched_infer_fn(cfg, ecfg)
+
+                def dispatch(graph, subs, generator):
+                    return _infer_image_sharded(run, params_m, state_m, graph,
+                                                subs, mesh, generator)
+        generator = torch.Generator(device=dev).manual_seed(2019)
+        examples = list(loader.iter_split(split, num_images))
+        if not examples:
+            return [], 0.0, 0
+
+        t0 = time.time()
+        predictions: List[dict] = []
+        n_caps = 0
+        # seeded locally, as in the JAX runner: the print-out is reproducible
+        # and the global numpy stream is left alone
+        vb_rng = np.random.RandomState(2019) if ecfg.verbose_beam else None
+        for i in range(0, len(examples), batch_images):
+            with span("subgc.test.dispatch"):
+                with span("subgc.test.stack"):
+                    chunk = examples[i:i + batch_images]
+                    # fixed-size image batches (the last one padded by
+                    # repetition)
+                    padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
+                    graph, subs = _stack_examples(padded)
+                out = dispatch(graph, subs, generator)
+                # the host's wait for the device, and the copy back
+                with span("subgc.test.readback"):
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
+                with span("subgc.test.captions"):
+                    n_caps += _add_predictions(
+                        predictions, out, chunk, vocab, ecfg, keep_tokens,
+                        collect_grounding, vb_rng, verbose)
+        return predictions, time.time() - t0, n_caps
 
 
 def save_predictions(predictions, out_dir: str, iter_tag: str,

@@ -17,6 +17,7 @@ import torch
 
 from ..config import ModelConfig
 from ..parallel import distributed as DP
+from ..utils.profiling import span
 from .encoder import one_hot
 
 
@@ -199,7 +200,9 @@ def subgraph_nms(scores, sub_obj_ind, sub_att_mask, valid, cfg: ModelConfig,
       thres)``; Jacobi iteration from ``k0 = valid`` settles an item of
       suppression-chain depth d after d rounds.  Each round tests the stop
       condition on the host, so the batch iterates until all images settle
-      (a settled image stays fixed).
+      (a settled image stays fixed).  A round (a span of its own) is one
+      test of the stop condition and, unless the batch has settled, one
+      Jacobi step.
     * ``parallel=False``: the sequential sweep, one confirmed keep per
       iteration — the reference's suppression loop truncated to max_keep.
     """
@@ -235,11 +238,12 @@ def subgraph_nms(scores, sub_obj_ind, sub_att_mask, valid, cfg: ModelConfig,
         sup = ((iou_sorted > iou_thres) & (ar[:, None] < ar[None, :])
                & valid_sorted[:, :, None]).to(torch.float32)
         k, prev = valid_sorted, ~valid_sorted
-        it = 0
-        while it < S and bool((k != prev).any()):
-            hit = (k.to(torch.float32)[:, None, :] @ sup)[:, 0] > 0.0
-            k, prev = valid_sorted & ~hit, k
-            it += 1
+        for _ in range(S):
+            with span("subgc.gpn.nms_round"):
+                if not bool((k != prev).any()):
+                    break
+                hit = (k.to(torch.float32)[:, None, :] @ sup)[:, 0] > 0.0
+                k, prev = valid_sorted & ~hit, k
         # full-NMS keep truncated to the max_keep best (greedy prefix)
         rank = torch.cumsum(k.to(torch.int64), dim=-1) - 1
         keep_sorted = k & (rank < max_keep)

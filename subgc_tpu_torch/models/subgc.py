@@ -17,6 +17,7 @@ import torch
 
 from ..config import EvalConfig, ModelConfig
 from ..graph import SceneGraph, SubgraphSet
+from ..utils.profiling import span
 from . import decoder as D
 from . import encoder as E
 from . import gpn as G
@@ -133,24 +134,26 @@ def encode_images_batched(params, state, graph: SceneGraph,
     batched route, as in the JAX package: it runs through
     :func:`encode_image`.
     """
-    x_obj, _, _ = E.encode_graph(params, state, graph, cfg)
-    f, scores, keep_ind, keep_valid = _encode_one(
-        params, x_obj, subs, cfg, ecfg, state.get("att_bn"))
-    B, K = f.fc.shape[:2]
+    with span("subgc.encode"):
+        x_obj, _, _ = E.encode_graph(params, state, graph, cfg)
+        f, scores, keep_ind, keep_valid = _encode_one(
+            params, x_obj, subs, cfg, ecfg, state.get("att_bn"))
+        B, K = f.fc.shape[:2]
 
-    def flat(x):
-        return None if x is None else x.reshape((B * K,) + x.shape[2:])
+        def flat(x):
+            return None if x is None else x.reshape((B * K,) + x.shape[2:])
 
-    img_ix = None
-    if f.att_img is not None:
-        img_ix = torch.repeat_interleave(
-            torch.arange(B, device=x_obj.device), K)
-    feats = D.PreparedFeatures(
-        fc=flat(f.fc), att=flat(f.att), p_att=flat(f.p_att),
-        mask=flat(f.mask), fc_ih=flat(f.fc_ih),
-        att_img=f.att_img, p_att_img=f.p_att_img, img_ix=img_ix)
-    return EncodedImage(feats=feats, scores=flat(scores),
-                        keep_ind=flat(keep_ind), keep_valid=flat(keep_valid))
+        img_ix = None
+        if f.att_img is not None:
+            img_ix = torch.repeat_interleave(
+                torch.arange(B, device=x_obj.device), K)
+        feats = D.PreparedFeatures(
+            fc=flat(f.fc), att=flat(f.att), p_att=flat(f.p_att),
+            mask=flat(f.mask), fc_ih=flat(f.fc_ih),
+            att_img=f.att_img, p_att_img=f.p_att_img, img_ix=img_ix)
+        return EncodedImage(feats=feats, scores=flat(scores),
+                            keep_ind=flat(keep_ind),
+                            keep_valid=flat(keep_valid))
 
 
 @torch.no_grad()
@@ -167,14 +170,17 @@ def encode_image(params, state, graph: SceneGraph,
         return encode_images_batched(params, state, graph,
                                      SubgraphSet(*(x[None] for x in subs)),
                                      cfg, ecfg)
-    x_obj, _, _ = E.encode_graph(params, state, graph, cfg)
-    att_feats = x_obj[0:1]
-    fc_feats = _full_graph_readout(params, att_feats.mean(1))
-    dev = x_obj.device
-    att_masks = _full_graph_mask(1, cfg, dev)
-    feats, _ = D.prepare_features_bn(params, fc_feats, att_feats, att_masks,
-                                     cfg, bn_state=state.get("att_bn"))
-    return EncodedImage(
-        feats=feats, scores=torch.ones((1,), dtype=torch.float32, device=dev),
-        keep_ind=torch.zeros((1,), dtype=torch.int64, device=dev),
-        keep_valid=torch.ones((1,), dtype=torch.bool, device=dev))
+    with span("subgc.encode"):
+        x_obj, _, _ = E.encode_graph(params, state, graph, cfg)
+        att_feats = x_obj[0:1]
+        fc_feats = _full_graph_readout(params, att_feats.mean(1))
+        dev = x_obj.device
+        att_masks = _full_graph_mask(1, cfg, dev)
+        feats, _ = D.prepare_features_bn(params, fc_feats, att_feats,
+                                         att_masks, cfg,
+                                         bn_state=state.get("att_bn"))
+        return EncodedImage(
+            feats=feats,
+            scores=torch.ones((1,), dtype=torch.float32, device=dev),
+            keep_ind=torch.zeros((1,), dtype=torch.int64, device=dev),
+            keep_valid=torch.ones((1,), dtype=torch.bool, device=dev))

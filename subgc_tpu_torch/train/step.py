@@ -25,6 +25,7 @@ from ..config import ModelConfig, TrainConfig
 from ..graph import SceneGraph
 from ..models import subgc
 from ..parallel import distributed as DP
+from ..utils.profiling import span
 from . import optim
 from .loss import language_model_loss
 
@@ -126,32 +127,37 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def step(ts: TrainState, batch: TrainBatch, generator, epoch: int,
              ss_prob: float, grads_out=None):
-        lang, gpn_loss, new_state = _forward_loss(
-            ts.params, ts.model_state, batch, cfg, True, generator,
-            ss_prob if use_ss else None, group)
-        total = lang + gpn_loss if gpn_loss is not None else lang
-        leaves = optim.tree_leaves(ts.params)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        if group is not None:
-            grads = DP.all_reduce_gradients(grads, leaves, group)
-        if grads_out is not None:
-            grads_out.extend(grads)
-        lr = optim.learning_rate(ts.step, epoch, tcfg)
-        opt_state, grad_norm = optim.apply_update(ts.params, grads,
-                                                  ts.opt_state, lr, tcfg)
-        dev = total.device
-        gpn = (gpn_loss.detach() if gpn_loss is not None
-               else torch.zeros((), device=dev))
-        losses = torch.stack([total.detach(), lang.detach(), gpn])
-        if group is not None:       # each rank's share of the global means
-            torch.distributed.all_reduce(losses, group=group)
-        metrics = {"loss": losses[0], "lang_loss": losses[1],
-                   "gpn_loss": losses[2],
-                   # a fill kernel, not a host-to-device copy (which syncs)
-                   "lr": torch.full((), lr, device=dev),
-                   "grad_norm": grad_norm}
-        return TrainState(params=ts.params, model_state=new_state,
-                          opt_state=opt_state, step=ts.step + 1), metrics
+        with span("subgc.train.step"):
+            with span("subgc.train.forward"):
+                lang, gpn_loss, new_state = _forward_loss(
+                    ts.params, ts.model_state, batch, cfg, True, generator,
+                    ss_prob if use_ss else None, group)
+                total = lang + gpn_loss if gpn_loss is not None else lang
+            leaves = optim.tree_leaves(ts.params)
+            with span("subgc.train.backward"):
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
+                if group is not None:
+                    grads = DP.all_reduce_gradients(grads, leaves, group)
+            if grads_out is not None:
+                grads_out.extend(grads)
+            with span("subgc.train.optim"):
+                lr = optim.learning_rate(ts.step, epoch, tcfg)
+                opt_state, grad_norm = optim.apply_update(
+                    ts.params, grads, ts.opt_state, lr, tcfg)
+            dev = total.device
+            gpn = (gpn_loss.detach() if gpn_loss is not None
+                   else torch.zeros((), device=dev))
+            losses = torch.stack([total.detach(), lang.detach(), gpn])
+            if group is not None:   # each rank's share of the global means
+                torch.distributed.all_reduce(losses, group=group)
+            metrics = {"loss": losses[0], "lang_loss": losses[1],
+                       "gpn_loss": losses[2],
+                       # a fill kernel, not a host-to-device copy (which
+                       # syncs)
+                       "lr": torch.full((), lr, device=dev),
+                       "grad_norm": grad_norm}
+            return TrainState(params=ts.params, model_state=new_state,
+                              opt_state=opt_state, step=ts.step + 1), metrics
 
     return step
 
