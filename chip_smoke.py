@@ -288,8 +288,25 @@ The published-weights route; 27 runs last:
     CPU's; (c) ``cli/quickstart.py --device cuda`` in a temporary workdir
     runs to its end (train, decode + language eval, diversity, rerank).
 
-Prints a ``{"kernels": [...]}`` line (both kernels and their bf16
-variants), then ``{"ok": true, "device": ...}`` as the last line.  Needs
+Phase 28 runs between phases 3 and 4: the split-TF32 GEMM
+(``ops/gemm.py``) at ``decode_step``'s seven products, at the rows of
+``sub_gc.mrnn_test`` (16 images x keep 1,000 slots = 16,000) and
+``sub_gc.kar_test`` (320), on the weights as stored: each product's
+largest error against float64 at most 4x torch's float32 product's; ms,
+TFLOP/s, the bound (2 M N K at the 495 TFLOP/s TF32 peak, or the
+compulsory bytes, and beside it the three passes' 3 x 2 M N K), the plain
+version's and torch.matmul's ms; then the sweep of a step's seven products
+over rows, kernel against torch.matmul with the host's time a call,
+behind ``decoder.SPLIT_GEMM_MIN_ROWS``.  Every checked decode path above
+resets the GEMM's launch counter beside the attention counters and checks
+it: 7 launches a step (6 in the teacher-forced val pass) where a float32
+decode without gradient has ``SPLIT_GEMM_MIN_ROWS`` rows or more (the
+fan-out path's M-RNN decode, which must take it), none below, in bf16 or
+in training.
+
+Prints a ``{"kernels": [...]}`` line (both attention kernels, their bf16
+variants and the split-TF32 GEMM), then ``{"ok": true, "device": ...}`` as
+the last line.  Needs
 no network and imports no jax.
 """
 import json
@@ -315,6 +332,11 @@ TRAIN_CHECK_IMAGES = 2   # card-vs-CPU gradients at full width
 F32_PEAK = 67e12         # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12       # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM device memory, bytes/s
+TF32_PEAK = 495e12       # H100 SXM TF32 on the tensor cores, dense, FLOP/s
+# decode_step's rows in the two test cells: sub_gc.mrnn_test decodes every
+# slot of keep 1000 for 16 images (the kept ~4,860 and the padding),
+# sub_gc.kar_test keep 10 x 16 images x 2 beams
+SPLIT_GEMM_ROWS = {"sub_gc.mrnn_test": 16 * 1000, "sub_gc.kar_test": 320}
 # phase 26: the ranks' gradient against the one-process step's.  At full
 # width a few ReLU inputs lie within the two runs' rounding difference of
 # 0 and take the other side in one of them; one such input moves the
@@ -596,6 +618,174 @@ def check_project_launches(path, launches):
              f"times for {launches} attention launches")
 
 
+# the split-TF32 GEMM's launches on each checked path, by label
+GEMM_COUNTS = {}
+
+
+def reset_gemm():
+    """Zero the split-TF32 GEMM's launch counter, just before a path."""
+    from subgc_tpu_torch.ops import gemm as GM
+    GM.reset_launch_counts()
+
+
+def check_gemm_launches(label, rows, steps, per_step=7):
+    """The split-TF32 GEMM launched, since :func:`reset_gemm`, as a float32
+    decode without gradient of ``steps`` steps over ``rows`` rows a step
+    must: ``per_step`` a step (7, or 6 where the word's product is hoisted
+    out of the steps) from ``decoder.SPLIT_GEMM_MIN_ROWS`` rows up, none
+    below.  ``rows`` 0: a path that must not launch it (bf16, training).
+    Records the count in :data:`GEMM_COUNTS`."""
+    from subgc_tpu_torch.models import decoder as D
+    from subgc_tpu_torch.ops import gemm as GM
+    want = per_step * steps if rows and rows >= D.SPLIT_GEMM_MIN_ROWS else 0
+    if GM.GEMM_LAUNCHES != want:
+        fail(f"{label}: split-TF32 GEMM launched {GM.GEMM_LAUNCHES} times, "
+             f"expected {want} ({steps} steps of {rows} rows, the kernel "
+             f"from {D.SPLIT_GEMM_MIN_ROWS} rows)")
+    GEMM_COUNTS[label] = want
+    return want
+
+
+def run_split_gemm(params, cfg):
+    """Phase 28: the split-TF32 GEMM at decode_step's seven products, at
+    both test cells' rows (:data:`SPLIT_GEMM_ROWS`), on the weights as the
+    model stores them (the LSTM input slices rows 4,000 floats apart).
+    Each against float64: its largest error at most 4x that of torch's
+    float32 product (TF32 off), which is also timed as the library
+    yardstick; the plain version (``split_gemm_ref``, three float32
+    products on the card) timed beside it.  ``bound_ms``: max(compulsory
+    bytes / HBM, 2 M N K / the TF32 tensor-core peak); ``bound_3x_ms``
+    the same with the three passes' 3 x 2 M N K.  Then the row sweep
+    behind ``decoder.SPLIT_GEMM_MIN_ROWS`` (:func:`split_gemm_sweep`)."""
+    import torch
+    from subgc_tpu_torch.models import decoder as D
+    from subgc_tpu_torch.ops import gemm as GM
+    dec = params["decoder"]
+    R = cfg.rnn_size
+    att, lang = dec["att_lstm"], dec["lang_lstm"]
+    products = [("att_x", att["w_ih"][2 * R:], None),
+                ("att_h", att["w_ih"][:R], None),
+                ("att_hh", att["w_hh"], att["b_hh"]),
+                ("lang_a", lang["w_ih"][:R], None),
+                ("lang_h", lang["w_ih"][R:], None),
+                ("lang_hh", lang["w_hh"], lang["b_hh"]),
+                ("logit", dec["logit"]["w"], dec["logit"]["b"])]
+    g = torch.Generator(device="cuda").manual_seed(28)
+    rows = []
+    for cell, M in SPLIT_GEMM_ROWS.items():
+        route = ("split_gemm" if M >= D.SPLIT_GEMM_MIN_ROWS
+                 else "torch.matmul")
+        for name, w, b in products:
+            Kw, N = w.shape
+            x = torch.rand((M, Kw), device="cuda", generator=g) * 2 - 1
+            ref = x.double() @ w.double()
+            if b is not None:
+                ref = ref + b.double()
+
+            def lib():
+                return x @ w if b is None else x @ w + b
+
+            err = (GM.split_gemm(x, w, b).double() - ref).abs().max()
+            f32 = (lib().double() - ref).abs().max()
+            if err > 4 * f32:
+                fail(f"split_gemm {cell} {name}: error {err:.3g} above 4x "
+                     f"torch float32's {f32:.3g}")
+            ms = cuda_ms(lambda: GM.split_gemm(x, w, b))
+            flops = 2 * M * N * Kw
+            nbytes = 4 * (M * Kw + N * Kw + M * N)
+            bound, by = _bound(nbytes, flops, TF32_PEAK)
+            rows.append({
+                "cell": cell, "product": name, "M": M, "K": Kw, "N": N,
+                "decode_route": route, "ms": ms,
+                "tflops": flops / ms * 1e-9, "bound_ms": bound,
+                "bound_by": by,
+                "bound_3x_ms": _bound(nbytes, 3 * flops, TF32_PEAK)[0],
+                "plain_ms": cuda_ms(lambda: GM.split_gemm_ref(x, w, b),
+                                    runs=5),
+                "library_ms": cuda_ms(lib),
+                "max_abs_err": float(err), "library_max_abs_err": float(f32)})
+            print(f"split_gemm {cell} {name}: M {M} K {Kw} N {N} "
+                  f"{ms:.4f} ms ({rows[-1]['tflops']:.1f} TFLOP/s), "
+                  f"torch.matmul {rows[-1]['library_ms']:.4f} ms, bound "
+                  f"{bound:.4f} ({by}; 3 passes "
+                  f"{rows[-1]['bound_3x_ms']:.4f}); error {err:.3g} "
+                  f"(torch {f32:.3g}); the decode takes {route}")
+    return rows, split_gemm_sweep(products)
+
+
+# rows of the sweep behind decoder.SPLIT_GEMM_MIN_ROWS
+SPLIT_GEMM_SWEEP = (128, 256, 320, 512, 768, 1000, 1024, 1536, 2048, 4096,
+                    4860, 16000)
+
+
+def split_gemm_sweep(products):
+    """The seven products of one decode step at each of
+    :data:`SPLIT_GEMM_SWEEP`'s rows (4,860: ``sub_gc.mrnn_test``'s kept
+    rows): the card's ms of the kernel and of torch's float32 product
+    (:func:`cuda_ms`, summed over the seven; the first, N = 4,000, also
+    alone, with its TFLOP/s), and the host's us a call of each (the mean
+    of 2,000 calls at 4 x 64 x 64, where the card keeps up).  Prints the
+    least rows from which the kernel's step takes less card time than
+    torch's by more than the kernel's extra host time;
+    ``decoder.SPLIT_GEMM_MIN_ROWS`` is set from it."""
+    import torch
+    from subgc_tpu_torch.models import decoder as D
+    from subgc_tpu_torch.ops import gemm as GM
+
+    def host_us(fn, n=2000):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / n
+
+    xs = torch.rand((4, 64), device="cuda")
+    ws, bs = torch.rand((64, 64), device="cuda"), torch.rand(64,
+                                                            device="cuda")
+    host = {"split_gemm": host_us(lambda: GM.split_gemm(xs, ws)),
+            "split_gemm_bias": host_us(lambda: GM.split_gemm(xs, ws, bs)),
+            "matmul": host_us(lambda: xs @ ws),
+            "matmul_bias": host_us(lambda: xs @ ws + bs)}
+    extra_ms = 1e-3 * (5 * (host["split_gemm"] - host["matmul"])
+                       + 2 * (host["split_gemm_bias"] - host["matmul_bias"]))
+    print(f"split_gemm host us a call: {host['split_gemm']:.2f} (with bias "
+          f"{host['split_gemm_bias']:.2f}); torch.matmul "
+          f"{host['matmul']:.2f} (x @ w + b {host['matmul_bias']:.2f}); "
+          f"the kernel's step adds {1e3 * extra_ms:.1f} us of host time")
+    g = torch.Generator(device="cuda").manual_seed(29)
+    sweep, wins = [], None
+    for M in SPLIT_GEMM_SWEEP:
+        ms = []
+        for _, w, b in products:
+            x = torch.rand((M, w.shape[0]), device="cuda", generator=g)
+            ms.append((cuda_ms(lambda: GM.split_gemm(x, w, b), runs=11),
+                       cuda_ms(lambda: x @ w if b is None else x @ w + b,
+                               runs=11)))
+        k_ms, l_ms = (sum(t[i] for t in ms) for i in (0, 1))
+        Kw, N = products[0][1].shape
+        first = 2 * M * N * Kw / ms[0][0] * 1e-9
+        win = l_ms - k_ms > extra_ms
+        if win and wins is None:
+            wins = M
+        elif not win:
+            wins = None
+        sweep.append({"M": M, "kernel_ms": k_ms, "library_ms": l_ms,
+                      "first_kernel_ms": ms[0][0],
+                      "first_library_ms": ms[0][1], "first_tflops": first})
+        print(f"split_gemm sweep: {M} rows, the step's seven products "
+              f"{k_ms:.4f} ms on the kernel, {l_ms:.4f} ms on torch.matmul; "
+              f"{Kw} x {N} alone {ms[0][0]:.4f} ms ({first:.1f} TFLOP/s), "
+              f"torch.matmul {ms[0][1]:.4f}")
+    print(f"split_gemm sweep: the kernel's step wins from {wins} rows up "
+          f"(SPLIT_GEMM_MIN_ROWS {D.SPLIT_GEMM_MIN_ROWS})")
+    return {"host_us": host, "rows": sweep, "wins_from": wins,
+            "min_rows": D.SPLIT_GEMM_MIN_ROWS}
+
+
 def make_examples(cfg, n_images, bucket, seed=0):
     """Synthetic test images in the shape of bench.py's ``make_image``, with
     detector boxes (drawn from their own stream) for the grounding path."""
@@ -756,11 +946,14 @@ def run_grounding(params, cpu_params, state, examples, vocab):
     torch.cuda.synchronize()
     col = GroundingCollector(*tables)
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda", collect_grounding=col)
     launches, beam_launches = A.ROW_LAUNCHES, A.LAUNCHES
     n_dispatch = -(-len(examples) // BATCH_IMAGES)
+    check_gemm_launches("grounding path", BATCH_IMAGES * ecfg.gpn_max_subg
+                        * ecfg.beam_size, n_dispatch * (cfg.seq_length + 1))
     if launches != n_dispatch * (cfg.seq_length + 1) or beam_launches:
         fail(f"grounding path: row kernel launched {launches} times, beam "
              f"kernel {beam_launches}; expected {n_dispatch} dispatches x "
@@ -814,11 +1007,17 @@ def run_fanout(params, cpu_params, state, vocab):
                    batch_images=FANOUT_BATCH, device="cuda")    # warm-up
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=FANOUT_BATCH, keep_tokens=True, device="cuda")
     launches, row_launches = A.LAUNCHES, A.ROW_LAUNCHES
     n_dispatch = -(-FANOUT_IMAGES // FANOUT_BATCH)
+    # the M-RNN decode's rows: every keep slot of each image
+    if not check_gemm_launches("fan-out path",
+                               FANOUT_BATCH * ecfg.gpn_max_subg,
+                               n_dispatch * cfg.seq_length):
+        fail("fan-out path: its decode no longer takes the split-TF32 GEMM")
     if launches != n_dispatch * cfg.seq_length or row_launches:
         fail(f"fan-out path: beam-shared kernel launched {launches} times, "
              f"row kernel {row_launches}; expected {n_dispatch} dispatches "
@@ -982,11 +1181,14 @@ def run_fullgc(vocab):
     decode_fullgc(params, state, examples[:2], cfg, ecfg, dev)   # warm-up
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     t0 = time.perf_counter()
     seqs = decode_fullgc(params, state, examples, cfg, ecfg, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = A.LAUNCHES
+    check_gemm_launches("Full-GC path", ecfg.beam_size,
+                        FULLGC_IMAGES * cfg.seq_length)
     if launches != FULLGC_IMAGES * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"Full-GC path: beam-shared kernel launched {launches} times, "
              f"row kernel {A.ROW_LAUNCHES}; expected {FULLGC_IMAGES} images "
@@ -1052,11 +1254,14 @@ def run_sct(preset, params_np, state_np, vocab, seed):
                    batch_images=BATCH_IMAGES, device="cuda")    # warm-up
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda")
     launches = A.LAUNCHES
     n_dispatch = -(-SCT_IMAGES // BATCH_IMAGES)
+    check_gemm_launches(preset, BATCH_IMAGES * SCT_BUCKET * ecfg.beam_size,
+                        n_dispatch * cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"{preset}: beam-shared kernel launched {launches} times, row "
              f"kernel {A.ROW_LAUNCHES}; expected {n_dispatch} dispatches x "
@@ -1411,9 +1616,13 @@ def _val_pass(label, cfg, ts, batch_np, expect_row, expect_shared,
     batch = batch_to_device(batch_np, "cuda")
     torch.cuda.synchronize()
     A.reset_launch_counts()
+    reset_gemm()
     loss = val_step(ts.params, ts.model_state, batch)
     torch.cuda.synchronize()
     bf16 = cfg.compute_dtype == "bfloat16"
+    # teacher-forced: the word's product is hoisted out of the steps
+    check_gemm_launches(label, 0 if bf16 else len(batch_np.labels),
+                        cfg.seq_length + 1, per_step=6)
     row, shared = ((A.ROW_BF16_LAUNCHES, A.SHARED_BF16_LAUNCHES) if bf16
                    else (A.ROW_LAUNCHES, A.LAUNCHES))
     if (row, shared) != (expect_row, expect_shared) or (
@@ -1489,6 +1698,7 @@ def run_train_steps(label, cfg, tcfg, params_np, state_np, n_hoisted,
         # copied synchronously before it (no prefetcher thread runs here;
         # phase 24's copies it from pinned memory after every such check)
         torch.cuda.set_sync_debug_mode("error" if strict else 0)
+        reset_gemm()
         try:
             ts, m = steps[ss](ts, batch, gen, 0, 0.25 if ss else 0.0)
         except RuntimeError as err:
@@ -1496,6 +1706,7 @@ def run_train_steps(label, cfg, tcfg, params_np, state_np, n_hoisted,
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
+        check_gemm_launches(f"{label} step {i}", 0, 0)
         ms = 1e3 * (time.perf_counter() - t0)
         vals = {k: v.item() for k, v in m.items()}
         if not all(np.isfinite(v) for v in vals.values()):
@@ -1685,9 +1896,11 @@ def run_bf16_test(params, cpu_params, state, examples, vocab, f32_preds):
                    batch_images=BATCH_IMAGES, device="cuda")    # warm-up
     torch.cuda.synchronize()
     A.reset_launch_counts()
+    reset_gemm()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda")
+    check_gemm_launches("bf16 main path", 0, 0)
     launches = A.SHARED_BF16_LAUNCHES
     n_dispatch = -(-len(examples) // BATCH_IMAGES)
     others = A.LAUNCHES + A.ROW_LAUNCHES + A.ROW_BF16_LAUNCHES
@@ -1762,9 +1975,11 @@ def run_bf16_grounding(params, cpu_params, state, examples, vocab):
     torch.cuda.synchronize()
     col = GroundingCollector(*tables)
     A.reset_launch_counts()
+    reset_gemm()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda", collect_grounding=col)
+    check_gemm_launches("bf16 grounding path", 0, 0)
     launches = A.ROW_BF16_LAUNCHES
     others = A.LAUNCHES + A.ROW_LAUNCHES + A.SHARED_BF16_LAUNCHES
     n_dispatch = -(-len(examples) // BATCH_IMAGES)
@@ -2113,9 +2328,13 @@ def serve_dtype(url, svc, params, state, cfg, ecfg, vocab, imgs, dtype):
     torch.cuda.synchronize()
     d0 = handle.batcher.dispatch_count
     A.reset_launch_counts()
+    reset_gemm()
     _, res = fire(url + "/caption", bodies, len(bodies))
     torch.cuda.synchronize()
     dispatches = handle.batcher.dispatch_count - d0
+    check_gemm_launches(f"serving {dtype}", 0 if dtype == "bfloat16" else
+                        SERVE_BATCH * ecfg.gpn_max_subg * ecfg.beam_size,
+                        dispatches * cfg.seq_length)
     counts = {n: getattr(A, n) for n in (
         "LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES",
         "ROW_BF16_LAUNCHES", "PROJECT_LAUNCHES")}
@@ -2386,6 +2605,7 @@ def run_scst_steps(label, cfg, params_np, state_np, vocab, n_steps, seed):
     for i in range(n_steps):
         torch.cuda.synchronize()
         A.reset_launch_counts()
+        reset_gemm()
         t0 = time.perf_counter()
         greedy, sample, _ = sample_fn(ts.params, ts.model_state, batch, gen)
         g_np, s_np = greedy.cpu().numpy(), sample.cpu().numpy()
@@ -2398,6 +2618,9 @@ def run_scst_steps(label, cfg, params_np, state_np, vocab, n_steps, seed):
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         counts = {n: getattr(A, n) for n in names}
+        check_gemm_launches(f"{label} step {i}", 0 if cfg.compute_dtype ==
+                            "bfloat16" else len(batch_np.labels),
+                            2 * cfg.seq_length)
         want = {n: 0 for n in names}
         want[kernel] = want["PROJECT_LAUNCHES"] = 2 * cfg.seq_length
         if counts != want:
@@ -2515,9 +2738,16 @@ def run_diverse(params, cpu_params, state, examples, vocab):
                        device="cuda")                       # warm-up
         torch.cuda.synchronize()
         A.reset_launch_counts()
+        reset_gemm()
         preds, wall, n_caps = run_test_split(
             params, state, loader, cfg, ecfg, vocab, verbose=False,
             batch_images=BATCH_IMAGES, device="cuda")
+        # each group's beams: beam_size / group_size of them a row
+        check_gemm_launches(
+            f"diverse {dtype}", 0 if dtype == "bfloat16" else
+            BATCH_IMAGES * ecfg.gpn_max_subg * ecfg.beam_size
+            // ecfg.group_size, ecfg.group_size * cfg.seq_length
+            * -(-len(ex) // BATCH_IMAGES))
         name = "LAUNCHES" if dtype == "float32" else "SHARED_BF16_LAUNCHES"
         n = getattr(A, name)
         others = (A.LAUNCHES + A.ROW_LAUNCHES + A.SHARED_BF16_LAUNCHES
@@ -2988,6 +3218,7 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
         fn()
         sync_mesh()
         A.reset_launch_counts()
+        reset_gemm()
         t0 = time.perf_counter()
         out = fn()
         sync_mesh()
@@ -3015,6 +3246,8 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
         shard_axis="image", **kw))
     launches = A.LAUNCHES
     check_project_launches("image-axis sharded path", launches)
+    check_gemm_launches("image-axis sharded path", BATCH_IMAGES
+                        * ecfg.gpn_max_subg * ecfg.beam_size // n, launches)
     stats["image_axis"] = compare_sharded(
         f"image axis (Sub_GC_Kar, {N_IMAGES} images)", got,
         preds[:N_IMAGES], launches, batches * n * cfg.seq_length, wall,
@@ -3035,6 +3268,8 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
         shard_axis="subgraph", **kw))
     launches = A.LAUNCHES
     check_project_launches("sub-graph-axis sharded path", launches)
+    check_gemm_launches("sub-graph-axis sharded path",
+                        ecfg.gpn_max_subg // 2, launches)
     stats["subgraph_axis"] = compare_sharded(
         "sub-graph axis (Sub_GC_MRNN, keep 1000, 2 x 500 rows)", got,
         fan_preds[:FANOUT_IMAGES], launches,
@@ -3062,6 +3297,8 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
     got, wall = timed(lambda: sharded(imgs))
     launches = A.LAUNCHES
     check_project_launches("sharded serving", launches)
+    check_gemm_launches("sharded serving", SERVE_BATCH * ecfg.gpn_max_subg
+                        * ecfg.beam_size // n, launches)
     as_preds = [[{"image_id": r["id"], "caption": r["captions"],
                   "subgraph_score": np.asarray(r["scores"]),
                   "sorted_subgraph_ind": np.arange(len(r["scores"]))}
@@ -3518,8 +3755,11 @@ def run_published(workdir, device="cuda"):
     run_test_cli(ckpt, man, device, "warmup")
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     preds, wall, n_caps = run_test_cli(ckpt, man, device, "card")
     launches = A.LAUNCHES
+    check_gemm_launches("27a", PUBLISHED_IMAGES * ecfg.gpn_max_subg
+                        * ecfg.beam_size, cfg.seq_length)
     if launches != cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"27a: beam-shared kernel launched {launches} times, row "
              f"kernel {A.ROW_LAUNCHES}; expected 1 dispatch x "
@@ -3554,8 +3794,10 @@ def run_published(workdir, device="cuda"):
     decode_fullgc(params, state, examples, cfg, ecfg, device)    # warm-up
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     seqs = decode_fullgc(params, state, examples, cfg, ecfg, device)
     fullgc_launches = A.LAUNCHES
+    check_gemm_launches("27b", ecfg.beam_size, cfg.seq_length)
     if fullgc_launches != cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"27b: beam-shared kernel launched {fullgc_launches} times, "
              f"row kernel {A.ROW_LAUNCHES}; expected {cfg.seq_length} and 0")
@@ -3598,6 +3840,7 @@ def main():
     from subgc_tpu_torch.models.params import init_params_numpy
     from subgc_tpu_torch.ops import _build
     from subgc_tpu_torch.ops import attention as A
+    from subgc_tpu_torch.ops import gemm as GM
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3625,6 +3868,10 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    _build.load("gemm")             # the split-TF32 decode products
+    for line in _build.BUILD_INFO["gemm"]["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas (gemm):", line.strip())
 
     # ---- 3. kernel against plain on the card
     cfg, ecfg, _ = build_configs("Sub_GC_Kar",
@@ -3640,6 +3887,10 @@ def main():
               check_attention(params, "subgraph", 96 * keep, 96 * keep,
                               seed=3)]
 
+    # ---- 28. the split-TF32 decode products at both test cells' shapes
+    gemm_rows, gemm_sweep = run_split_gemm(params, cfg)
+    print(json.dumps({"split_gemm": gemm_rows, "sweep": gemm_sweep}))
+
     # ---- 4. main path at full width
     examples = make_examples(cfg, N_IMAGES, BUCKET)
     loader = MemoryLoader(examples)
@@ -3649,11 +3900,14 @@ def main():
                    batch_images=BATCH_IMAGES, device="cuda")    # warm-up
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
+    reset_gemm()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda")
     launches = A.LAUNCHES
     n_dispatch = -(-N_IMAGES // BATCH_IMAGES)
+    check_gemm_launches("main path", S_main * ecfg.beam_size,
+                        n_dispatch * cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"attention kernel launched {launches} times on the main path "
              f"(row kernel {A.ROW_LAUNCHES}), expected {n_dispatch} "
@@ -3845,6 +4099,19 @@ def main():
         "bound_ms": bf16_row[0]["bound_ms"],
         "bound_by": bf16_row[0]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "split_gemm",
+        "route": "cuda",
+        "source": "subgc_tpu_torch/ops/csrc/gemm.cu",
+        "replaces": None,
+        # the fan-out path's: the one checked path whose decode takes it
+        "launches": GEMM_COUNTS["fan-out path"],
+        "max_abs_err": max(r["max_abs_err"] for r in gemm_rows),
+        "ms": gemm_rows[0]["ms"],
+        "plain_ms": gemm_rows[0]["plain_ms"],
+        "bound_ms": gemm_rows[0]["bound_ms"],
+        "bound_by": gemm_rows[0]["bound_by"],
+        "library_ms": gemm_rows[0]["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ attention -> lang-LSTM -> logit -> log_softmax.  Decoder state and tokens
 carry any leading shape; the beam search uses ``[S, bdash]`` (sub-graph,
 beam), where the JAX package vmaps over sub-graphs.  The LSTM, logit and
 projection products are plain ``torch.matmul``, as the JAX package leaves
-them to XLA.
+them to XLA, but for :func:`decode_step`'s seven float32 products on the
+card without a gradient at :data:`SPLIT_GEMM_MIN_ROWS` rows or more:
+those go through the split-TF32 tensor-core kernel (``ops/gemm.py``,
+float32 accuracy) on the weights as stored.
 
 Attention takes one of two routes.  At inference (and in the val pass,
 under ``torch.no_grad()``) every layout goes through the hand-written
@@ -38,6 +41,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import row_attention, shared_attention
+from ..ops.gemm import split_gemm
 from ..parallel import distributed as DP
 from .encoder import batch_norm_1d, batch_norm_1d_train
 from .gpn import node_membership
@@ -97,6 +101,20 @@ def _matmul(x, w, dt, keep=False):
         return x @ w
     y = _cast(x, dt) @ _cast(w, dt)
     return y if keep else y.float()
+
+
+# decode_step's float32 products take the split-TF32 kernel from this many
+# rows (the leading dims of the step's tokens) up.  Measured on an H100
+# (chip_smoke.py's phase 28 sweep, PERF.md): from 1,000 rows the kernel's
+# seven products of a step save more card time than its calls add host
+# time (~25 us a call over torch's); below, at the beam decodes' 320 and
+# 3 rows, torch.matmul is as fast or faster on the card, and cheaper to
+# call.  The M-RNN greedy decode (1,000 rows an image) takes the kernel.
+SPLIT_GEMM_MIN_ROWS = 1000
+
+
+def _on_card(t) -> bool:
+    return t.device.type == "cuda"
 
 
 def cast_decoder_weights(params, cfg: ModelConfig):
@@ -504,12 +522,15 @@ class _LSTMNonlinB16R(torch.autograd.Function):
 
 
 def _lstm_cell_gx(p, gx, h, c, dt=F32, bf16_gates: bool = False,
-                  bf16_resid: bool = False):
+                  bf16_resid: bool = False, gh=None):
     """LSTM cell with the input-side gates (x @ w_ih + b_ih) precomputed
     (JAX ``decoder.py:225-244``).  Bf16 gates: ``gx`` is bf16 and the
     recurrent product and ``b_hh`` join it in bf16.  ``bf16_resid`` keeps
-    bfloat16 backward residuals (training)."""
-    if bf16_gates and dt != F32:
+    bfloat16 backward residuals (training).  ``gh``: the float32 recurrent
+    share ``h @ w_hh + b_hh``, already computed (the split-TF32 kernel)."""
+    if gh is not None:
+        g = gx + gh
+    elif bf16_gates and dt != F32:
         g = (gx + _matmul(h, p["w_hh"], dt, keep=True)
              + _cast(p["b_hh"], dt))
     else:
@@ -517,6 +538,29 @@ def _lstm_cell_gx(p, gx, h, c, dt=F32, bf16_gates: bool = False,
     if bf16_resid:
         return _LSTMNonlinB16R.apply(g, c, dt, bf16_gates)
     return _lstm_nonlin(g, c, dt, bf16_gates)
+
+
+def _leaves(tree):
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _split_products(params, state, token, feats, cfg: ModelConfig, train,
+                    xt_ih=None) -> bool:
+    """Whether :func:`decode_step`'s seven products take the split-TF32
+    kernel: where the compute dtype is float32 (the bf16 chain's products
+    already run on the tensor cores), on the card, at
+    :data:`SPLIT_GEMM_MIN_ROWS` rows or more, not in training, and where
+    autograd needs no gradient through any of the step's inputs."""
+    if (cfg.cdtype != F32 or train or not _on_card(token)
+            or token.numel() < SPLIT_GEMM_MIN_ROWS):
+        return False
+    return not (torch.is_grad_enabled() and _needs_autograd(
+        *state, xt_ih, *feats, *_leaves(params["decoder"])))
 
 
 def decode_step(params, state: DecoderState, token,
@@ -532,7 +576,14 @@ def decode_step(params, state: DecoderState, token,
     ``xt_ih`` is the word embedding's precomputed att-LSTM gate share
     [S, 4R] (:func:`forward_teacher` hoists all T of them).  Attention runs
     through the kernels unless this is training or autograd needs a
-    gradient through it (:func:`attention_teacher`).
+    gradient through it (:func:`attention_teacher`).  The seven products
+    (the att-LSTM's word, ``h_lang`` and recurrent ones, the lang-LSTM's
+    ``att_res``, ``h_att`` and recurrent ones, the logit) run through the
+    split-TF32 kernel (``ops/gemm.py``) when the compute dtype is float32,
+    the tensors are on the card, the step has :data:`SPLIT_GEMM_MIN_ROWS`
+    rows or more and no gradient is needed (:func:`_split_products`); the
+    recurrent and logit biases join in its epilogue, with the one float32
+    rounding of ``x @ w + b``.
 
     In the bf16 chain the products round as JAX ``decode_step``'s do
     (``decoder.py:558-639``); under ``bf16_lstm_gates`` ``fc_ih``, the
@@ -544,6 +595,7 @@ def decode_step(params, state: DecoderState, token,
     R1 = cfg.rnn_size
     b16r = cfg.bf16_residuals and train
     bf16g = cfg.bf16_lstm_gates and dt != F32
+    split = _split_products(params, state, token, feats, cfg, train, xt_ih)
     w_ih = dec["att_lstm"]["w_ih"]
     b_ih_a = dec["att_lstm"]["b_ih"]
     fc_ih = feats.fc_ih if token.dim() == 1 else feats.fc_ih[:, None, :]
@@ -553,11 +605,15 @@ def decode_step(params, state: DecoderState, token,
     if xt_ih is None:
         xt = torch.relu(dec["embed"][token])
         xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
-        xt_ih = _matmul(xt, w_ih[2 * R1:], dt, keep=bf16g)
-    gx_att = (_matmul(state.h_lang, w_ih[:R1], dt, keep=bf16g) + fc_ih
-              + xt_ih + b_ih_a)
+        xt_ih = (split_gemm(xt, w_ih[2 * R1:]) if split
+                 else _matmul(xt, w_ih[2 * R1:], dt, keep=bf16g))
+    gx_att = ((split_gemm(state.h_lang, w_ih[:R1]) if split
+               else _matmul(state.h_lang, w_ih[:R1], dt, keep=bf16g))
+              + fc_ih + xt_ih + b_ih_a)
+    gh_att = (split_gemm(state.h_att, dec["att_lstm"]["w_hh"],
+                         dec["att_lstm"]["b_hh"]) if split else None)
     h_att, c_att = _lstm_cell_gx(dec["att_lstm"], gx_att, state.h_att,
-                                 state.c_att, dt, bf16g, b16r)
+                                 state.c_att, dt, bf16g, b16r, gh_att)
 
     if train or _needs_autograd(
             h_att, feats.att, feats.p_att, feats.att_img, feats.p_att_img,
@@ -571,12 +627,21 @@ def decode_step(params, state: DecoderState, token,
     b_ih_l = dec["lang_lstm"]["b_ih"]
     if bf16g:
         b_ih_l = _cast(b_ih_l, dt)
-    gx_lang = (_matmul(att_res, w_ih_l[:R1], dt, keep=bf16g)
-               + _matmul(h_att, w_ih_l[R1:], dt, keep=bf16g) + b_ih_l)
+    if split:
+        gx_lang = (split_gemm(att_res, w_ih_l[:R1])
+                   + split_gemm(h_att, w_ih_l[R1:]) + b_ih_l)
+        gh_lang = split_gemm(state.h_lang, dec["lang_lstm"]["w_hh"],
+                             dec["lang_lstm"]["b_hh"])
+    else:
+        gx_lang = (_matmul(att_res, w_ih_l[:R1], dt, keep=bf16g)
+                   + _matmul(h_att, w_ih_l[R1:], dt, keep=bf16g) + b_ih_l)
+        gh_lang = None
     h_lang, c_lang = _lstm_cell_gx(dec["lang_lstm"], gx_lang, state.h_lang,
-                                   state.c_lang, dt, bf16g, b16r)
+                                   state.c_lang, dt, bf16g, b16r, gh_lang)
     out = _dropout(h_lang, cfg.drop_prob_lm, generator, train)
-    logprobs = torch.log_softmax(_dense(out, dec["logit"], dt), dim=-1)
+    logits = (split_gemm(out, dec["logit"]["w"], dec["logit"]["b"])
+              if split else _dense(out, dec["logit"], dt))
+    logprobs = torch.log_softmax(logits, dim=-1)
     return logprobs, DecoderState(h_att, c_att, h_lang, c_lang), att_w
 
 
