@@ -290,7 +290,7 @@ The published-weights route; 27 runs last:
 
 Phase 28 runs between phases 3 and 4: the split-TF32 GEMM
 (``ops/gemm.py``) at ``decode_step``'s seven products, at the rows of
-``sub_gc.mrnn_test`` (16 images x keep 1,000 slots = 16,000) and
+``sub_gc.mrnn_test`` (16 images x ~304 kept sub-graphs = 4,864) and
 ``sub_gc.kar_test`` (320), on the weights as stored: each product's
 largest error against float64 at most 4x torch's float32 product's; ms,
 TFLOP/s, the bound (2 M N K at the 495 TFLOP/s TF32 peak, or the
@@ -302,7 +302,9 @@ resets the GEMM's launch counter beside the attention counters and checks
 it: 7 launches a step (6 in the teacher-forced val pass) where a float32
 decode without gradient has ``SPLIT_GEMM_MIN_ROWS`` rows or more (the
 fan-out path's M-RNN decode, which must take it), none below, in bf16 or
-in training.
+in training.  A test decode's rows are its dispatch's kept sub-graphs
+(under SCT its real region sets) times the beams, not its keep slots:
+only those decode.
 
 Prints a ``{"kernels": [...]}`` line (both attention kernels, their bf16
 variants and the split-TF32 GEMM), then ``{"ok": true, "device": ...}`` as
@@ -333,10 +335,10 @@ F32_PEAK = 67e12         # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12       # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM device memory, bytes/s
 TF32_PEAK = 495e12       # H100 SXM TF32 on the tensor cores, dense, FLOP/s
-# decode_step's rows in the two test cells: sub_gc.mrnn_test decodes every
-# slot of keep 1000 for 16 images (the kept ~4,860 and the padding),
-# sub_gc.kar_test keep 10 x 16 images x 2 beams
-SPLIT_GEMM_ROWS = {"sub_gc.mrnn_test": 16 * 1000, "sub_gc.kar_test": 320}
+# decode_step's rows in the two test cells: sub_gc.mrnn_test decodes the
+# kept sub-graphs of keep 1000 for 16 images (~4,860, 4,750-4,890 a
+# dispatch), sub_gc.kar_test keep 10 x 16 images x 2 beams
+SPLIT_GEMM_ROWS = {"sub_gc.mrnn_test": 16 * 304, "sub_gc.kar_test": 320}
 # phase 26: the ranks' gradient against the one-process step's.  At full
 # width a few ReLU inputs lie within the two runs' rounding difference of
 # 0 and take the other side in one of them; one such input moves the
@@ -633,17 +635,37 @@ def check_gemm_launches(label, rows, steps, per_step=7):
     decode without gradient of ``steps`` steps over ``rows`` rows a step
     must: ``per_step`` a step (7, or 6 where the word's product is hoisted
     out of the steps) from ``decoder.SPLIT_GEMM_MIN_ROWS`` rows up, none
-    below.  ``rows`` 0: a path that must not launch it (bf16, training).
-    Records the count in :data:`GEMM_COUNTS`."""
+    below.  ``rows``: one count for every step, or a list of each
+    decode's rows (:func:`dispatch_rows`), ``steps`` then one decode's;
+    0: a path that must not launch it (bf16, training).  Records the
+    count in :data:`GEMM_COUNTS`."""
     from subgc_tpu_torch.models import decoder as D
     from subgc_tpu_torch.ops import gemm as GM
-    want = per_step * steps if rows and rows >= D.SPLIT_GEMM_MIN_ROWS else 0
+    want = sum(per_step * steps for r in np.atleast_1d(rows)
+               if r and r >= D.SPLIT_GEMM_MIN_ROWS)
     if GM.GEMM_LAUNCHES != want:
         fail(f"{label}: split-TF32 GEMM launched {GM.GEMM_LAUNCHES} times, "
              f"expected {want} ({steps} steps of {rows} rows, the kernel "
              f"from {D.SPLIT_GEMM_MIN_ROWS} rows)")
     GEMM_COUNTS[label] = want
     return want
+
+
+def dispatch_rows(preds, batch, beams=1):
+    """The rows each dispatch of a ``run_test_split`` decodes, from its
+    predictions (split order): its images' kept sub-graphs, one caption
+    each, the last dispatch's padding images repeating its last image,
+    times the beams."""
+    kept = [len(p["caption"]) for p in preds]
+    return [beams * (sum(c) + (batch - len(c)) * c[-1])
+            for c in (kept[i:i + batch] for i in range(0, len(kept), batch))]
+
+
+def serving_rows(kept, beams):
+    """The most rows a serving dispatch of ``SERVE_BATCH`` images can
+    decode (which images share one is the batcher's): the images' largest
+    ``kept`` counts (captions an image), times the beams."""
+    return beams * sum(sorted(kept)[-SERVE_BATCH:])
 
 
 def run_split_gemm(params, cfg):
@@ -870,12 +892,11 @@ def check_sampled_tokens(label, preds, vocab, ecfg):
 
 
 def phase_times(params, state, examples, cfg, ecfg, device):
-    """Median ms of encoder+sGPN+NMS and of the decode (beam search, or
-    greedy / top-k at beam_size 1), one batch."""
+    """Median ms of encoder+sGPN+NMS and of the decode of the kept rows as
+    the runner decodes them (beam search, or greedy / top-k at beam_size
+    1), one batch."""
     import torch
-    from subgc_tpu_torch.decode.beam import beam_search
-    from subgc_tpu_torch.decode.greedy import sample
-    from subgc_tpu_torch.eval.runner import _stack_examples
+    from subgc_tpu_torch.eval.runner import _decode, _stack_examples
     from subgc_tpu_torch.graph import to_device
     from subgc_tpu_torch.models.subgc import encode_images_batched
     graph, subs = (to_device(x, device) for x in _stack_examples(examples))
@@ -887,10 +908,7 @@ def phase_times(params, state, examples, cfg, ecfg, device):
             enc = encode_images_batched(params, state, graph, subs, cfg, ecfg)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            if ecfg.beam_size > 1:
-                beam_search(params, enc.feats, cfg, ecfg)
-            else:
-                sample(params, enc.feats, cfg, ecfg)
+            _decode(params, enc.feats, enc.keep_valid, cfg, ecfg)
             torch.cuda.synchronize()
             enc_ms.append(1e3 * (t1 - t0))
             dec_ms.append(1e3 * (time.perf_counter() - t1))
@@ -952,8 +970,9 @@ def run_grounding(params, cpu_params, state, examples, vocab):
         batch_images=BATCH_IMAGES, device="cuda", collect_grounding=col)
     launches, beam_launches = A.ROW_LAUNCHES, A.LAUNCHES
     n_dispatch = -(-len(examples) // BATCH_IMAGES)
-    check_gemm_launches("grounding path", BATCH_IMAGES * ecfg.gpn_max_subg
-                        * ecfg.beam_size, n_dispatch * (cfg.seq_length + 1))
+    check_gemm_launches("grounding path",
+                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size),
+                        cfg.seq_length + 1)
     if launches != n_dispatch * (cfg.seq_length + 1) or beam_launches:
         fail(f"grounding path: row kernel launched {launches} times, beam "
              f"kernel {beam_launches}; expected {n_dispatch} dispatches x "
@@ -997,6 +1016,7 @@ def run_fanout(params, cpu_params, state, vocab):
     the examples)."""
     import torch
     from subgc_tpu_torch import build_configs, run_test_split
+    from subgc_tpu_torch.models import decoder as D
     from subgc_tpu_torch.ops import attention as A
     cfg, ecfg, _ = build_configs("Sub_GC_MRNN",
                                  eval=dict(max_subgraph_bucket=FANOUT_BUCKET))
@@ -1013,11 +1033,12 @@ def run_fanout(params, cpu_params, state, vocab):
         batch_images=FANOUT_BATCH, keep_tokens=True, device="cuda")
     launches, row_launches = A.LAUNCHES, A.ROW_LAUNCHES
     n_dispatch = -(-FANOUT_IMAGES // FANOUT_BATCH)
-    # the M-RNN decode's rows: every keep slot of each image
-    if not check_gemm_launches("fan-out path",
-                               FANOUT_BATCH * ecfg.gpn_max_subg,
-                               n_dispatch * cfg.seq_length):
-        fail("fan-out path: its decode no longer takes the split-TF32 GEMM")
+    # the M-RNN decode's rows: each dispatch's kept sub-graphs
+    rows = dispatch_rows(preds, FANOUT_BATCH)
+    if min(rows) < D.SPLIT_GEMM_MIN_ROWS:
+        fail(f"fan-out path: dispatches of {rows} kept rows; the check needs "
+             f"{D.SPLIT_GEMM_MIN_ROWS} or more in each")
+    check_gemm_launches("fan-out path", rows, cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or row_launches:
         fail(f"fan-out path: beam-shared kernel launched {launches} times, "
              f"row kernel {row_launches}; expected {n_dispatch} dispatches "
@@ -1260,8 +1281,9 @@ def run_sct(preset, params_np, state_np, vocab, seed):
         batch_images=BATCH_IMAGES, device="cuda")
     launches = A.LAUNCHES
     n_dispatch = -(-SCT_IMAGES // BATCH_IMAGES)
-    check_gemm_launches(preset, BATCH_IMAGES * SCT_BUCKET * ecfg.beam_size,
-                        n_dispatch * cfg.seq_length)
+    check_gemm_launches(preset,
+                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size),
+                        cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"{preset}: beam-shared kernel launched {launches} times, row "
              f"kernel {A.ROW_LAUNCHES}; expected {n_dispatch} dispatches x "
@@ -2333,7 +2355,8 @@ def serve_dtype(url, svc, params, state, cfg, ecfg, vocab, imgs, dtype):
     torch.cuda.synchronize()
     dispatches = handle.batcher.dispatch_count - d0
     check_gemm_launches(f"serving {dtype}", 0 if dtype == "bfloat16" else
-                        SERVE_BATCH * ecfg.gpn_max_subg * ecfg.beam_size,
+                        serving_rows([len(r["caption"]) for r in refs],
+                                     ecfg.beam_size),
                         dispatches * cfg.seq_length)
     counts = {n: getattr(A, n) for n in (
         "LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES",
@@ -2744,10 +2767,9 @@ def run_diverse(params, cpu_params, state, examples, vocab):
             batch_images=BATCH_IMAGES, device="cuda")
         # each group's beams: beam_size / group_size of them a row
         check_gemm_launches(
-            f"diverse {dtype}", 0 if dtype == "bfloat16" else
-            BATCH_IMAGES * ecfg.gpn_max_subg * ecfg.beam_size
-            // ecfg.group_size, ecfg.group_size * cfg.seq_length
-            * -(-len(ex) // BATCH_IMAGES))
+            f"diverse {dtype}", 0 if dtype == "bfloat16" else dispatch_rows(
+                preds, BATCH_IMAGES, ecfg.beam_size // ecfg.group_size),
+            ecfg.group_size * cfg.seq_length)
         name = "LAUNCHES" if dtype == "float32" else "SHARED_BF16_LAUNCHES"
         n = getattr(A, name)
         others = (A.LAUNCHES + A.ROW_LAUNCHES + A.SHARED_BF16_LAUNCHES
@@ -3246,8 +3268,8 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
         shard_axis="image", **kw))
     launches = A.LAUNCHES
     check_project_launches("image-axis sharded path", launches)
-    check_gemm_launches("image-axis sharded path", BATCH_IMAGES
-                        * ecfg.gpn_max_subg * ecfg.beam_size // n, launches)
+    check_gemm_launches("image-axis sharded path", dispatch_rows(
+        got, BATCH_IMAGES // n, ecfg.beam_size), cfg.seq_length)
     stats["image_axis"] = compare_sharded(
         f"image axis (Sub_GC_Kar, {N_IMAGES} images)", got,
         preds[:N_IMAGES], launches, batches * n * cfg.seq_length, wall,
@@ -3268,8 +3290,10 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
         shard_axis="subgraph", **kw))
     launches = A.LAUNCHES
     check_project_launches("sub-graph-axis sharded path", launches)
-    check_gemm_launches("sub-graph-axis sharded path",
-                        ecfg.gpn_max_subg // 2, launches)
+    # each image's kept prefix of its 1000 slots, in 2 chunks of 500
+    check_gemm_launches("sub-graph-axis sharded path", [
+        int(np.clip(len(p["caption"]) - c * 500, 0, 500))
+        for p in got for c in range(2)], cfg.seq_length)
     stats["subgraph_axis"] = compare_sharded(
         "sub-graph axis (Sub_GC_MRNN, keep 1000, 2 x 500 rows)", got,
         fan_preds[:FANOUT_IMAGES], launches,
@@ -3297,8 +3321,8 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
     got, wall = timed(lambda: sharded(imgs))
     launches = A.LAUNCHES
     check_project_launches("sharded serving", launches)
-    check_gemm_launches("sharded serving", SERVE_BATCH * ecfg.gpn_max_subg
-                        * ecfg.beam_size // n, launches)
+    check_gemm_launches("sharded serving", serving_rows(
+        [len(r["captions"]) for r in want], ecfg.beam_size), launches)
     as_preds = [[{"image_id": r["id"], "caption": r["captions"],
                   "subgraph_score": np.asarray(r["scores"]),
                   "sorted_subgraph_ind": np.arange(len(r["scores"]))}
@@ -3758,8 +3782,8 @@ def run_published(workdir, device="cuda"):
     reset_gemm()
     preds, wall, n_caps = run_test_cli(ckpt, man, device, "card")
     launches = A.LAUNCHES
-    check_gemm_launches("27a", PUBLISHED_IMAGES * ecfg.gpn_max_subg
-                        * ecfg.beam_size, cfg.seq_length)
+    check_gemm_launches("27a", dispatch_rows(preds, PUBLISHED_IMAGES,
+                                             ecfg.beam_size), cfg.seq_length)
     if launches != cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"27a: beam-shared kernel launched {launches} times, row "
              f"kernel {A.ROW_LAUNCHES}; expected 1 dispatch x "
@@ -3906,8 +3930,9 @@ def main():
         batch_images=BATCH_IMAGES, device="cuda")
     launches = A.LAUNCHES
     n_dispatch = -(-N_IMAGES // BATCH_IMAGES)
-    check_gemm_launches("main path", S_main * ecfg.beam_size,
-                        n_dispatch * cfg.seq_length)
+    check_gemm_launches("main path",
+                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size),
+                        cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"attention kernel launched {launches} times on the main path "
              f"(row kernel {A.ROW_LAUNCHES}), expected {n_dispatch} "

@@ -65,12 +65,14 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     Both per-row attention layouts run: the image-shared fan-out when
     ``feats.att_img`` is set, the per-row streams otherwise (attention
     capture).  ``generator`` feeds the top-k draws; without one, a generator
-    seeded with 0 on the tensors' device is used.  ``rows=(offset,
-    total)``: these rows are rows ``offset ..`` of a ``total``-row decode
-    (a shard of a sharded decode), whose draws they take
-    (``decoder.draw_categorical``), so that the sampled tokens do not
-    depend on the shard count.  Runs without autograd, so params that
-    require grad decode as their detached copies do.
+    seeded with 0 on the tensors' device is used.  ``rows=(at, total)``:
+    these rows are rows ``at ..`` (an int), or rows ``at`` (an index
+    tensor), of a ``total``-row decode (a shard of a sharded decode, the
+    kept rows of a keep set), whose draws they take
+    (``decoder.draw_categorical``), so that the sampled tokens depend on
+    neither the shard count nor the rows left out.  Runs without
+    autograd, so params that require grad decode as their detached copies
+    do.
     """
     with span("subgc.decode"):
         params = D.cast_decoder_weights(params, cfg)     # once per call

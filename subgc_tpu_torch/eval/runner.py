@@ -25,8 +25,11 @@ one thread per mesh device, as the JAX package's single-process mesh runs:
   split into contiguous chunks, one per device, so that one image's
   keep-1000 fan-out spreads over the devices.
 
-The outputs equal the unsharded run's: the top-k draws are the unsharded
-row shape's, cut to each shard's rows.  In-process sharding is slower than
+Only the kept rows decode (NMS pads each image's keep set to
+``gpn_max_subg`` slots; under SCT ``subs.valid`` marks the real region
+sets); the decode's outputs in the other slots are zeros.  The outputs
+equal the unsharded run's: the top-k draws are the unsharded row shape's,
+cut to each shard's kept rows.  In-process sharding is slower than
 one card on every path measured (``PERF.md``): the decode is host-bound,
 and the threads share one interpreter lock.  It stays so until a process
 per card decodes its shard.
@@ -52,12 +55,23 @@ from ..utils.profiling import span
 from ..utils.text import decode_sequence
 
 
-def _decode(params, feats, cfg: ModelConfig, ecfg: EvalConfig,
-            generator=None, rows=None):
+# PreparedFeatures' row-leading fields; att_img / p_att_img are per image
+ROW_FIELDS = ("fc", "att", "p_att", "mask", "fc_ih", "img_ix")
+
+
+def _take_rows(feats, idx):
+    """``feats`` at rows ``idx``: the row-leading fields gathered, the
+    per-image streams as they are (``img_ix`` still maps each row to its
+    image's)."""
+    return feats._replace(**{
+        f: getattr(feats, f).index_select(0, idx) for f in ROW_FIELDS
+        if getattr(feats, f) is not None})
+
+
+def _decode_rows(params, feats, cfg: ModelConfig, ecfg: EvalConfig,
+                 generator, rows):
     """Beam search, or greedy / top-k at ``beam_size`` 1, of every row of
-    ``feats``: a dict of [S, ...] tensors.  ``rows=(offset, total)``: the
-    top-k draws are those of rows ``offset ..`` of a ``total``-row
-    decode."""
+    ``feats``."""
     if ecfg.beam_size > 1:
         out = beam_mod.beam_search(params, feats, cfg, ecfg)
         res = dict(seq=out.seq, logprobs=out.logprobs)
@@ -69,6 +83,30 @@ def _decode(params, feats, cfg: ModelConfig, ecfg: EvalConfig,
     if ecfg.return_att:
         res["att_weights"] = out.att_weights
     return res
+
+
+def _decode(params, feats, keep, cfg: ModelConfig, ecfg: EvalConfig,
+            generator=None, rows=None):
+    """Beam search, or greedy / top-k at ``beam_size`` 1, of the rows of
+    ``feats`` that ``keep`` [S] bool marks (NMS's kept sub-graphs; under
+    SCT the real region sets): a dict of [S, ...] tensors out, zeros in
+    the other rows.  The kept rows are gathered, decoded and put back;
+    finding them is one host sync, and with every row kept nothing is
+    gathered.  ``rows=(offset, total)``: the top-k draws are those of rows
+    ``offset ..`` of a ``total``-row decode.  A kept row decodes, and
+    draws, as it does in a decode of every row."""
+    S = feats.fc.shape[0]
+    idx = torch.nonzero(keep).flatten()
+    n = idx.numel()
+    if n == S:
+        return _decode_rows(params, feats, cfg, ecfg, generator, rows)
+    # nothing kept: one row decodes, for the outputs' shapes
+    sel = idx if n else idx.new_zeros(1)
+    offset, total = rows if rows is not None else (0, S)
+    res = _decode_rows(params, _take_rows(feats, sel), cfg, ecfg, generator,
+                       (sel + offset, total))
+    return {k: v.new_zeros((S,) + v.shape[1:]).index_copy_(0, idx, v[:n])
+            for k, v in res.items()}
 
 
 def _fork(generator, device):
@@ -111,25 +149,26 @@ def _run_on_devices(devices, jobs):
     return out
 
 
-def _decode_sharded(params, feats, mesh, cfg, ecfg, generator):
+def _decode_sharded(params, feats, keep, mesh, cfg, ecfg, generator):
     """Sub-graph-axis decode: ``feats`` rows (on the first mesh device)
     split into one contiguous chunk per device; the row-leading fields
-    are chunked, the per-image streams ``att_img``/``p_att_img``
-    replicated, so each row's image gather stays on its device (the JAX
-    runner's sharding constraints, ``subgc_tpu/eval/runner.py:80-97``).
-    ``params`` holds one copy per device.  Returns the gathered outputs in
-    row order on the first device."""
+    and ``keep`` are chunked, the per-image streams
+    ``att_img``/``p_att_img`` replicated, so each row's image gather stays
+    on its device (the JAX runner's sharding constraints,
+    ``subgc_tpu/eval/runner.py:80-97``).  Each device decodes its chunk's
+    kept rows.  ``params`` holds one copy per device.  Returns the
+    gathered outputs in row order on the first device."""
     S = feats.fc.shape[0]
-    rowwise = dict(fc=feats.fc, att=feats.att, p_att=feats.p_att,
-                   mask=feats.mask, fc_ih=feats.fc_ih, img_ix=feats.img_ix)
-    chunks = M.shard_leading_axis(mesh, rowwise)
+    rowwise = {f: getattr(feats, f) for f in ROW_FIELDS}
+    chunks = M.shard_leading_axis(mesh, dict(rowwise, keep=keep))
     images = M.replicate(mesh, dict(att_img=feats.att_img,
                                     p_att_img=feats.p_att_img))
     gens = [_fork(generator, d) for d in mesh.devices]
     offsets = np.cumsum([0] + [c["fc"].shape[0] for c in chunks])
+    keeps = [c.pop("keep") for c in chunks]
     jobs = [lambda k=k: _decode(
-        params[k], feats._replace(**chunks[k], **images[k]), cfg, ecfg,
-        gens[k], rows=(int(offsets[k]), S)) for k in range(mesh.size)]
+        params[k], feats._replace(**chunks[k], **images[k]), keeps[k], cfg,
+        ecfg, gens[k], rows=(int(offsets[k]), S)) for k in range(mesh.size)]
     outs = _run_on_devices(mesh.devices, jobs)
     if generator is not None:
         # every shard drew the whole row shape: step the split's generator
@@ -142,10 +181,11 @@ def make_batched_infer_fn(cfg: ModelConfig, ecfg: EvalConfig, mesh=None):
     """[B]-image program: graph [B, ...] and subs [B, S, ...] tensors in,
     a dict of [B, Smax, ...] tensors out (seq, logprobs, scores, keep_ind,
     keep_valid; att_weights under ``return_att``; every beam's tokens,
-    all_beams, under ``verbose_beam``).  ``generator`` feeds the top-k
-    draws; ``images=(first, total)`` says that this batch is images
-    ``first ..`` of a ``total``-image dispatch (an image-axis shard), whose
-    draws it takes for its rows.
+    all_beams, under ``verbose_beam``).  Only the rows ``keep_valid``
+    marks decode; the decode's outputs are zeros in the others.
+    ``generator`` feeds the top-k draws; ``images=(first, total)`` says
+    that this batch is images ``first ..`` of a ``total``-image dispatch
+    (an image-axis shard), whose draws it takes for its rows.
 
     ``mesh``: the sub-graph-axis program.  ``params`` and ``state`` are
     then ``mesh.replicate``'s per-device lists, graph and subs lie on the
@@ -162,10 +202,11 @@ def make_batched_infer_fn(cfg: ModelConfig, ecfg: EvalConfig, mesh=None):
             if images is not None:
                 K = enc.feats.fc.shape[0] // B      # rows per image
                 rows = (images[0] * K, images[1] * K)
-            res = _decode(p0, enc.feats, cfg, ecfg, generator, rows)
+            res = _decode(p0, enc.feats, enc.keep_valid, cfg, ecfg,
+                          generator, rows)
         else:
-            res = _decode_sharded(params, enc.feats, mesh, cfg, ecfg,
-                                  generator)
+            res = _decode_sharded(params, enc.feats, enc.keep_valid, mesh,
+                                  cfg, ecfg, generator)
         res.update(scores=enc.scores, keep_ind=enc.keep_ind,
                    keep_valid=enc.keep_valid)
         return {k: v.reshape((B, -1) + v.shape[1:]) for k, v in res.items()}

@@ -158,17 +158,19 @@ def draw_categorical(logits, generator, rows=None):
     (Gumbel-max, as ``jax.random.categorical``); -inf entries are never
     drawn.
 
-    ``rows=(offset, total)``: these rows are rows ``offset ..`` of a
-    ``total``-row batch, and the uniforms are drawn for all ``total`` rows
-    and cut to these, so that a shard of a sharded decode draws what the
-    unsharded decode draws for its rows.  Under a data-parallel group the
+    ``rows=(at, total)``: these rows are rows ``at ..`` (an int), or rows
+    ``at`` (an index tensor), of a ``total``-row batch, and the uniforms
+    are drawn for all ``total`` rows and cut to these, so that a shard of
+    a sharded decode, or a decode of the kept rows alone, draws what the
+    decode of every row draws for them.  Under a data-parallel group the
     draw is the global batch's (``parallel.distributed.rand_rows``)."""
     if rows is not None:
-        offset, total = rows
+        at, total = rows
         u = torch.rand((total,) + tuple(logits.shape[1:]),
                        generator=generator, dtype=logits.dtype,
                        device=logits.device)
-        u = u[offset:offset + logits.shape[0]]
+        u = (u.index_select(0, at) if torch.is_tensor(at)
+             else u[at:at + logits.shape[0]])
     else:
         u = DP.rand_rows(logits.shape, generator, logits.device,
                          dtype=logits.dtype)

@@ -98,7 +98,7 @@ def _encode_one(params, x_obj, subs: SubgraphSet, cfg: ModelConfig,
     with the image vmap written out as the leading axis of ``x_obj``
     [B, n_obj, L] and ``subs`` [B, S, ...].  Under SCT there is no NMS
     (AttModel.py:95): every slot of the bucket is a row and ``subs.valid``
-    says which are real.  Returns (feats with rows [B, K, ...] and image
+    says which are real (the runner decodes only those).  Returns (feats with rows [B, K, ...] and image
     streams [B, n_obj, *], scores, keep_ind, keep_valid), each [B, K]."""
     out = G.gpn_test_forward(params, x_obj, subs.obj_ind, subs.att_mask, cfg)
     if ecfg.sct:
