@@ -318,6 +318,12 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
     att_weights, order) for the grounding path (grd_utils.py:13-61);
     att_weights is None unless ``ecfg.return_att``.
 
+    Dispatches run in two stages: dispatch k's decode is queued on the
+    card before dispatch k-1's predictions are written (and
+    ``collect_grounding`` called) and dispatch k+1's inputs are stacked;
+    then dispatch k is read back.  Predictions, callbacks and print-out
+    come in split order, as one dispatch after another would give them.
+
     Top-k draws come from one generator on ``device`` for the whole split,
     seeded with 2019 as the JAX package's default key is.  bfloat16 matmuls
     sum in float32 throughout (``device.f32_accumulation``).
@@ -384,22 +390,41 @@ def run_test_split(params, state, loader, cfg: ModelConfig, ecfg: EvalConfig,
         # seeded locally, as in the JAX runner: the print-out is reproducible
         # and the global numpy stream is left alone
         vb_rng = np.random.RandomState(2019) if ecfg.verbose_beam else None
+
+        def stack(i):
+            with span("subgc.test.stack"):
+                chunk = examples[i:i + batch_images]
+                # fixed-size image batches (the last one padded by
+                # repetition)
+                padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
+                return chunk, _stack_examples(padded)
+
+        def captions(host_out, chunk):
+            with span("subgc.test.captions"):
+                return _add_predictions(
+                    predictions, host_out, chunk, vocab, ecfg, keep_tokens,
+                    collect_grounding, vb_rng, verbose)
+
+        # Two stages: the decode's launches return before the card has run
+        # them, so the host writes the previous dispatch's captions and
+        # stacks the next dispatch's inputs while the card decodes this one.
+        # The encoder's NMS rounds and the kept-row read sync the stream, so
+        # one dispatch in flight is all a deeper queue would hold.
+        nxt = stack(0)
+        done = None            # the previous dispatch's host outputs, images
         for i in range(0, len(examples), batch_images):
             with span("subgc.test.dispatch"):
-                with span("subgc.test.stack"):
-                    chunk = examples[i:i + batch_images]
-                    # fixed-size image batches (the last one padded by
-                    # repetition)
-                    padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
-                    graph, subs = _stack_examples(padded)
-                out = dispatch(graph, subs, generator)
+                chunk, inputs = nxt
+                out = dispatch(*inputs, generator)
+                if done is not None:
+                    n_caps += captions(*done)
+                if i + batch_images < len(examples):
+                    nxt = stack(i + batch_images)
                 # the host's wait for the device, and the copy back
                 with span("subgc.test.readback"):
                     out = {k: v.cpu().numpy() for k, v in out.items()}
-                with span("subgc.test.captions"):
-                    n_caps += _add_predictions(
-                        predictions, out, chunk, vocab, ecfg, keep_tokens,
-                        collect_grounding, vb_rng, verbose)
+                done = out, chunk
+        n_caps += captions(*done)
         return predictions, time.time() - t0, n_caps
 
 

@@ -7,7 +7,9 @@ on the CPU at tiny Sub-GC widths:
 * on path, under ``torch.profiler`` (greedy and beam 2, two dispatches):
   the span names and counts (a dispatch: one ``stack``, ``to_device``,
   ``encode``, ``decode``, ``readback`` and ``captions``, ``seq_length``
-  decode steps, at least one NMS round) and their nesting, and a train
+  decode steps, at least one NMS round) and their nesting in the runner's
+  two stages (dispatch k: its placing, encoding and decoding, dispatch
+  k-1's captions, dispatch k+1's stacking, its copy back), and a train
   step's forward, backward and optimizer spans in that order inside it,
   with the prefetcher's spans on the consumer's thread alone;
 * clock: a span brackets the profiler's event of an operator run inside it;
@@ -155,25 +157,46 @@ def test_test_split_spans_nest_under_the_profiler(beam):
         "subgc.test.readback": n, "subgc.test.captions": n}
     assert _parents(spans, by["subgc.test.split"]) == {None}
     assert _parents(spans, by["subgc.test.dispatch"]) == {"subgc.test.split"}
-    for name in ("subgc.test.stack", "subgc.test.to_device", "subgc.encode",
-                 "subgc.decode", "subgc.test.readback",
-                 "subgc.test.captions"):
+    for name in ("subgc.test.to_device", "subgc.encode", "subgc.decode",
+                 "subgc.test.readback"):
         assert _parents(spans, by[name]) == {"subgc.test.dispatch"}, name
     assert _parents(spans, by["subgc.gpn.nms_round"]) == {"subgc.encode"}
     assert _parents(spans, by["subgc.decode.step"]) == {"subgc.decode"}
-    for d in by["subgc.test.dispatch"]:
-        kids = {spans[i].name: i for i in range(len(spans))
-                if spans[i].parent == d}
-        rounds = [i for i in by["subgc.gpn.nms_round"]
-                  if spans[i].parent == kids["subgc.encode"]]
-        assert len(rounds) >= 1
-        # one after another: stacking, placing, encoding, decoding, the
-        # copy back and the caption text
-        order = [kids[k] for k in (
-            "subgc.test.stack", "subgc.test.to_device", "subgc.encode",
-            "subgc.decode", "subgc.test.readback", "subgc.test.captions")]
+
+    def start(i):
+        return spans[i].start_ns
+
+    # two stages: dispatch k writes dispatch k-1's captions and stacks
+    # dispatch k+1's inputs; the split's first stacking and last caption
+    # text lie outside every dispatch
+    stacks = sorted(by["subgc.test.stack"], key=start)
+    texts = sorted(by["subgc.test.captions"], key=start)
+    dispatches = sorted(by["subgc.test.dispatch"], key=start)
+    split = by["subgc.test.split"][0]
+    assert spans[stacks[0]].parent == split
+    assert spans[texts[-1]].parent == split
+    assert spans[stacks[0]].end_ns <= spans[dispatches[0]].start_ns
+    assert spans[dispatches[-1]].end_ns <= spans[texts[-1]].start_ns
+    for k, d in enumerate(dispatches):
+        kids = sorted((i for i in range(len(spans)) if spans[i].parent == d),
+                      key=start)
+        # one after another: placing, encoding and decoding this dispatch,
+        # the previous one's caption text, the next one's stacking, and
+        # this one's copy back
+        names = ["subgc.test.to_device", "subgc.encode", "subgc.decode"]
+        names += ["subgc.test.captions"] * (k > 0)
+        names += ["subgc.test.stack"] * (k < n - 1)
+        names += ["subgc.test.readback"]
+        assert [spans[i].name for i in kids] == names
         assert all(spans[a].end_ns <= spans[b].start_ns
-                   for a, b in zip(order, order[1:]))
+                   for a, b in zip(kids, kids[1:]))
+        if k > 0:
+            assert texts[k - 1] in kids
+        if k < n - 1:
+            assert stacks[k + 1] in kids
+        rounds = [i for i in by["subgc.gpn.nms_round"]
+                  if spans[i].parent == kids[1]]
+        assert len(rounds) >= 1
 
 
 def test_train_step_spans_nest_under_the_profiler():
