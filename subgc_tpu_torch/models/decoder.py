@@ -5,19 +5,25 @@ The counterpart of ``subgc_tpu/models/decoder.py`` (reference
 `models/AttModel.py:392-471`, training loop :157-175): att-LSTM -> additive
 attention -> lang-LSTM -> logit -> log_softmax.  Decoder state and tokens
 carry any leading shape; the beam search uses ``[S, bdash]`` (sub-graph,
-beam), where the JAX package vmaps over sub-graphs.  The LSTM, logit and
-projection products are plain ``torch.matmul``, as the JAX package leaves
-them to XLA, but for :func:`decode_step`'s seven float32 products on the
-card without a gradient at :data:`SPLIT_GEMM_MIN_ROWS` rows or more:
-those go through the split-TF32 tensor-core kernel (``ops/gemm.py``,
-float32 accuracy) on the weights as stored.
+beam), where the JAX package vmaps over sub-graphs.
 
-Attention takes one of two routes.  At inference (and in the val pass,
-under ``torch.no_grad()``) every layout goes through the hand-written
-kernels in ``ops/attention.py`` (:func:`attention`).  The kernels are
-forward-only, as the Pallas kernels are, so training and any call that
-needs a gradient attend through :func:`attention_teacher`, the JAX
-package's XLA attention written in torch ops under autograd.
+:func:`decode_step` chooses one of three routes a step (:func:`_route`):
+
+* ``autograd``: training, or a step that autograd needs a gradient
+  through.  Attention is :func:`attention_teacher`, the JAX package's XLA
+  attention written in torch ops, and the products are ``torch.matmul``,
+  as the JAX package leaves them to XLA;
+* ``kernels``: any step without a gradient (inference, and the val pass
+  under ``torch.no_grad()``).  Attention goes through the hand-written,
+  forward-only kernels in ``ops/attention.py`` (:func:`attention`; their
+  plain versions on CPU tensors), the products through ``torch.matmul``;
+* ``split``: a ``kernels`` step in float32 on the card with
+  :data:`SPLIT_GEMM_MIN_ROWS` rows or more, whose seven products go
+  through the split-TF32 tensor-core kernel (``ops/gemm.py``, float32
+  accuracy) on the weights as stored.
+
+The projections outside the step are plain ``torch.matmul`` on every
+route.
 
 Training draws every dropout mask and scheduled-sampling token from an
 explicit ``torch.Generator``; without one there is no dropout.
@@ -449,14 +455,6 @@ def attention_teacher(params, h, feats: PreparedFeatures):
     return weighted(w[:, None, :], feats.att)[:, 0], w
 
 
-def _needs_autograd(*tensors):
-    """Whether autograd would need a gradient through an op on
-    ``tensors`` (grad mode on and one of them requires grad); grad mode
-    alone, as at inference outside ``no_grad``, does not count."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def _sigmoid(x):
     """The logistic function; in bf16 as the JAX package's lowers on bf16
     operands, ``1 / (1 + exp(-x))`` with every op rounded to bf16 (one
@@ -523,23 +521,15 @@ class _LSTMNonlinB16R(torch.autograd.Function):
         return dg.to(ctx.g_dtype), dc * f, None, None
 
 
-def _lstm_cell_gx(p, gx, h, c, dt=F32, bf16_gates: bool = False,
-                  bf16_resid: bool = False, gh=None):
-    """LSTM cell with the input-side gates (x @ w_ih + b_ih) precomputed
-    (JAX ``decoder.py:225-244``).  Bf16 gates: ``gx`` is bf16 and the
-    recurrent product and ``b_hh`` join it in bf16.  ``bf16_resid`` keeps
-    bfloat16 backward residuals (training).  ``gh``: the float32 recurrent
-    share ``h @ w_hh + b_hh``, already computed (the split-TF32 kernel)."""
-    if gh is not None:
-        g = gx + gh
-    elif bf16_gates and dt != F32:
-        g = (gx + _matmul(h, p["w_hh"], dt, keep=True)
-             + _cast(p["b_hh"], dt))
-    else:
-        g = gx + _dense(h, {"w": p["w_hh"], "b": p["b_hh"]}, dt)
-    if bf16_resid:
-        return _LSTMNonlinB16R.apply(g, c, dt, bf16_gates)
-    return _lstm_nonlin(g, c, dt, bf16_gates)
+def _lstm_gates(product, p, gx, h, dt=F32, bf16_gates: bool = False):
+    """An LSTM's gates: the input share ``gx`` (x @ w_ih + b_ih) plus the
+    recurrent product through the route's ``product`` and ``b_hh`` (JAX
+    ``_lstm_cell_gx``, ``decoder.py:225-244``).  Bf16 gates (bf16 compute
+    dtype): ``gx`` is bf16, and the product and then ``b_hh`` join it in
+    bf16; otherwise ``gx + (h @ w_hh + b_hh)``."""
+    if bf16_gates:
+        return gx + product(h, p["w_hh"]) + _cast(p["b_hh"], dt)
+    return gx + product(h, p["w_hh"], p["b_hh"])
 
 
 def _leaves(tree):
@@ -551,18 +541,39 @@ def _leaves(tree):
         yield tree
 
 
-def _split_products(params, state, token, feats, cfg: ModelConfig, train,
-                    xt_ih=None) -> bool:
-    """Whether :func:`decode_step`'s seven products take the split-TF32
-    kernel: where the compute dtype is float32 (the bf16 chain's products
-    already run on the tensor cores), on the card, at
-    :data:`SPLIT_GEMM_MIN_ROWS` rows or more, not in training, and where
-    autograd needs no gradient through any of the step's inputs."""
-    if (cfg.cdtype != F32 or train or not _on_card(token)
-            or token.numel() < SPLIT_GEMM_MIN_ROWS):
-        return False
-    return not (torch.is_grad_enabled() and _needs_autograd(
-        *state, xt_ih, *feats, *_leaves(params["decoder"])))
+def _route(params, state, token, feats, cfg: ModelConfig, train,
+           xt_ih=None) -> str:
+    """:func:`decode_step`'s route (the module docstring): ``"autograd"``
+    in training, or where grad mode is on and one of the step's inputs
+    requires grad (the state, ``xt_ih``, a field of ``feats``, a leaf of
+    the decoder); else ``"split"`` where the compute dtype is float32 (the
+    bf16 chain's products already run on the tensor cores), the tokens are
+    on the card and the step has :data:`SPLIT_GEMM_MIN_ROWS` rows or more;
+    else ``"kernels"``."""
+    if train or (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*state, xt_ih, *feats, *_leaves(params["decoder"])))):
+        return "autograd"
+    if (cfg.cdtype == F32 and _on_card(token)
+            and token.numel() >= SPLIT_GEMM_MIN_ROWS):
+        return "split"
+    return "kernels"
+
+
+def _product(route: str, dt, bf16_gates: bool):
+    """The route's product ``(x, w, b=None) -> x @ w`` (+ ``b``): the
+    split-TF32 kernel, ``b`` joining in its epilogue, on the ``split``
+    route; otherwise torch's, rounded in the compute dtype (and kept in
+    bf16 under bf16 gates) by :func:`_matmul`, or with ``b`` the biased
+    :func:`_dense`."""
+    if route == "split":
+        return split_gemm
+
+    def product(x, w, b=None):
+        if b is None:
+            return _matmul(x, w, dt, keep=bf16_gates)
+        return _dense(x, {"w": w, "b": b}, dt)
+    return product
 
 
 def decode_step(params, state: DecoderState, token,
@@ -576,16 +587,17 @@ def decode_step(params, state: DecoderState, token,
     embedding and on the lang-LSTM output before the logit, and
     ``cfg.bf16_residuals`` selects the bfloat16-residual LSTM backward.
     ``xt_ih`` is the word embedding's precomputed att-LSTM gate share
-    [S, 4R] (:func:`forward_teacher` hoists all T of them).  Attention runs
-    through the kernels unless this is training or autograd needs a
-    gradient through it (:func:`attention_teacher`).  The seven products
-    (the att-LSTM's word, ``h_lang`` and recurrent ones, the lang-LSTM's
-    ``att_res``, ``h_att`` and recurrent ones, the logit) run through the
-    split-TF32 kernel (``ops/gemm.py``) when the compute dtype is float32,
-    the tensors are on the card, the step has :data:`SPLIT_GEMM_MIN_ROWS`
-    rows or more and no gradient is needed (:func:`_split_products`); the
-    recurrent and logit biases join in its epilogue, with the one float32
-    rounding of ``x @ w + b``.
+    [S, 4R] (:func:`forward_teacher` hoists all T of them).
+
+    The step's route (:func:`_route`, once a step) chooses the attention,
+    :func:`attention_teacher` on the ``autograd`` route and the kernels
+    (:func:`attention`) otherwise, and the product (:func:`_product`) that
+    forms each of its seven products: the att-LSTM's word, ``h_lang`` and
+    recurrent ones, the lang-LSTM's ``att_res``, ``h_att`` and recurrent
+    ones, the logit.  On the ``split`` route the recurrent and logit
+    biases join in the kernel's epilogue, with the one float32 rounding of
+    ``x @ w + b``; torch's routes keep the sums ``gx + (h @ w_hh + b_hh)``
+    and ``out @ w + b``.
 
     In the bf16 chain the products round as JAX ``decode_step``'s do
     (``decoder.py:558-639``); under ``bf16_lstm_gates`` ``fc_ih``, the
@@ -595,9 +607,11 @@ def decode_step(params, state: DecoderState, token,
     dec = params["decoder"]
     dt = cfg.cdtype
     R1 = cfg.rnn_size
-    b16r = cfg.bf16_residuals and train
     bf16g = cfg.bf16_lstm_gates and dt != F32
-    split = _split_products(params, state, token, feats, cfg, train, xt_ih)
+    route = _route(params, state, token, feats, cfg, train, xt_ih)
+    mm = _product(route, dt, bf16g)
+    cell = (_LSTMNonlinB16R.apply if cfg.bf16_residuals and train
+            else _lstm_nonlin)
     w_ih = dec["att_lstm"]["w_ih"]
     b_ih_a = dec["att_lstm"]["b_ih"]
     fc_ih = feats.fc_ih if token.dim() == 1 else feats.fc_ih[:, None, :]
@@ -607,20 +621,12 @@ def decode_step(params, state: DecoderState, token,
     if xt_ih is None:
         xt = torch.relu(dec["embed"][token])
         xt = _dropout(xt, cfg.drop_prob_lm, generator, train)
-        xt_ih = (split_gemm(xt, w_ih[2 * R1:]) if split
-                 else _matmul(xt, w_ih[2 * R1:], dt, keep=bf16g))
-    gx_att = ((split_gemm(state.h_lang, w_ih[:R1]) if split
-               else _matmul(state.h_lang, w_ih[:R1], dt, keep=bf16g))
-              + fc_ih + xt_ih + b_ih_a)
-    gh_att = (split_gemm(state.h_att, dec["att_lstm"]["w_hh"],
-                         dec["att_lstm"]["b_hh"]) if split else None)
-    h_att, c_att = _lstm_cell_gx(dec["att_lstm"], gx_att, state.h_att,
-                                 state.c_att, dt, bf16g, b16r, gh_att)
+        xt_ih = mm(xt, w_ih[2 * R1:])
+    gx_att = mm(state.h_lang, w_ih[:R1]) + fc_ih + xt_ih + b_ih_a
+    h_att, c_att = cell(_lstm_gates(mm, dec["att_lstm"], gx_att, state.h_att,
+                                    dt, bf16g), state.c_att, dt, bf16g)
 
-    if train or _needs_autograd(
-            h_att, feats.att, feats.p_att, feats.att_img, feats.p_att_img,
-            dec["h2att"]["w"], dec["h2att"]["b"], dec["alpha_net"]["w"],
-            dec["alpha_net"]["b"]):
+    if route == "autograd":
         att_res, att_w = attention_teacher(params, h_att, feats)
     else:
         att_res, att_w = attention(params, h_att, feats, cfg)
@@ -629,20 +635,12 @@ def decode_step(params, state: DecoderState, token,
     b_ih_l = dec["lang_lstm"]["b_ih"]
     if bf16g:
         b_ih_l = _cast(b_ih_l, dt)
-    if split:
-        gx_lang = (split_gemm(att_res, w_ih_l[:R1])
-                   + split_gemm(h_att, w_ih_l[R1:]) + b_ih_l)
-        gh_lang = split_gemm(state.h_lang, dec["lang_lstm"]["w_hh"],
-                             dec["lang_lstm"]["b_hh"])
-    else:
-        gx_lang = (_matmul(att_res, w_ih_l[:R1], dt, keep=bf16g)
-                   + _matmul(h_att, w_ih_l[R1:], dt, keep=bf16g) + b_ih_l)
-        gh_lang = None
-    h_lang, c_lang = _lstm_cell_gx(dec["lang_lstm"], gx_lang, state.h_lang,
-                                   state.c_lang, dt, bf16g, b16r, gh_lang)
+    gx_lang = mm(att_res, w_ih_l[:R1]) + mm(h_att, w_ih_l[R1:]) + b_ih_l
+    h_lang, c_lang = cell(_lstm_gates(mm, dec["lang_lstm"], gx_lang,
+                                      state.h_lang, dt, bf16g),
+                          state.c_lang, dt, bf16g)
     out = _dropout(h_lang, cfg.drop_prob_lm, generator, train)
-    logits = (split_gemm(out, dec["logit"]["w"], dec["logit"]["b"])
-              if split else _dense(out, dec["logit"], dt))
+    logits = mm(out, dec["logit"]["w"], dec["logit"]["b"])
     logprobs = torch.log_softmax(logits, dim=-1)
     return logprobs, DecoderState(h_att, c_att, h_lang, c_lang), att_w
 

@@ -133,9 +133,11 @@ def test_prepare_features_nodes_bf16_matches_jax(tiny_cfg, gates,
 
 @pytest.mark.parametrize("gates", [False, True])
 def test_lstm_cell_bf16_matches_jax(tiny_cfg, gates):
-    """``h`` rides in bf16, ``c`` in float32; under bf16 gates the gate
-    streams, ``b_hh`` and the sigmoid / tanh are bf16 (the sigmoid as JAX
-    lowers it, ``1 / (1 + exp(-x))`` op by op)."""
+    """The LSTM cell, its gates through torch's products and then its
+    nonlinearity, against JAX's ``_lstm_cell_gx``.  ``h`` rides in bf16,
+    ``c`` in float32; under bf16 gates the gate streams, ``b_hh`` and the
+    sigmoid / tanh are bf16 (the sigmoid as JAX lowers it, ``1 / (1 +
+    exp(-x))`` op by op)."""
     jcfg, cfg = _cfgs(tiny_cfg, gates)
     params, _ = _params(cfg)
     R = cfg.rnn_size
@@ -151,8 +153,9 @@ def test_lstm_cell_bf16_matches_jax(tiny_cfg, gates):
         jgx, tgx = jgx.astype(jnp.bfloat16), tgx.to(BF)
     jh, jc = JD._lstm_cell_gx(jp, jgx, jnp.asarray(h).astype(jnp.bfloat16),
                               jnp.asarray(c), jnp.bfloat16, gates)
-    th, tc = D._lstm_cell_gx(tp, tgx, torch.from_numpy(h).to(BF),
-                             torch.from_numpy(c), BF, gates)
+    tg = D._lstm_gates(D._product("kernels", BF, gates), tp, tgx,
+                       torch.from_numpy(h).to(BF), BF, gates)
+    th, tc = D._lstm_nonlin(tg, torch.from_numpy(c), BF, gates)
     assert th.dtype == BF and tc.dtype == torch.float32
     np.testing.assert_allclose(_f32(th), _f32(jh), rtol=ULP, atol=1e-5)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0,

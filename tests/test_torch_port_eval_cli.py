@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import subgc_tpu.config as JC
+import subgc_tpu.ops.native as JN
 import subgc_tpu.train.step as JSTEP
 import subgc_tpu_torch.train.step as PSTEP
 from subgc_tpu.cli import controllability as j_ctl
@@ -38,6 +39,7 @@ from subgc_tpu_torch.config import ModelConfig
 from subgc_tpu_torch.eval import runner as p_runner
 from subgc_tpu_torch.models.params import init_params_numpy
 
+from ._native_lib import wait_for_native
 from .test_torch_port_metrics import (_ctl_inputs, _fanout_predictions,
                                       _int_feats, _sentences)
 from .test_torch_port_scorers import assert_same
@@ -138,7 +140,11 @@ def test_language_eval_top1_and_verbose_loss_equal_jax(run, monkeypatch,
                                                        capsys):
     """The test.sh command (--language_eval 1 at oracle 1) with the LM loss
     report: both loaders on the C++ sampler; both CLIs' val-step losses
-    recorded at full precision."""
+    recorded at full precision.  The JAX package builds its C++ library
+    in place on first use; a test process that loaded it while another was
+    still writing it samples with its Python fallback for good (other
+    draws, a loss 5.8e-4 away), so wait for a whole library first."""
+    wait_for_native(JN)
     _, ckpt, common = run
     seen = {"j": [], "p": []}
 

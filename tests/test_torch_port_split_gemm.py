@@ -97,21 +97,23 @@ def test_checks_refuse_what_the_kernel_does_not_take(bad):
         GM.split_gemm(x, w, b)
 
 
-@pytest.mark.parametrize("lead,split", [
-    ((3,), False), ((160, 2), False),           # Full-GC's beam, Kar's
-    ((D.SPLIT_GEMM_MIN_ROWS - 1,), False), ((D.SPLIT_GEMM_MIN_ROWS,), True),
-    ((4864,), True), ((16000,), True),          # M-RNN: kept rows, all slots
+@pytest.mark.parametrize("lead,train,route", [
+    ((3,), False, "kernels"), ((160, 2), False, "kernels"),  # Full-GC, Kar
+    ((D.SPLIT_GEMM_MIN_ROWS - 1,), False, "kernels"),
+    ((D.SPLIT_GEMM_MIN_ROWS,), False, "split"),
+    ((4864,), False, "split"), ((16000,), False, "split"),  # M-RNN
+    ((16000,), True, "autograd"),               # training, even in no_grad
 ])
-def test_split_route_follows_the_rows(lead, split, monkeypatch):
+def test_split_route_follows_the_rows(lead, train, route, monkeypatch):
     """On the card the decode step's rows choose the route: the beam
-    decodes keep torch's products, the M-RNN greedy decode takes the
-    kernel."""
+    decodes keep torch's products, the M-RNN greedy decode (kept rows, or
+    all keep slots) takes the kernel; training takes the autograd route
+    at any rows, under ``torch.no_grad()`` too."""
     cfg = ModelConfig(compute_dtype="float32", **TINY)
     monkeypatch.setattr(D, "_on_card", lambda t: True)
     tok = torch.zeros(lead, dtype=torch.int64)
     with torch.no_grad():
-        assert D._split_products({"decoder": {}}, (), tok, (), cfg,
-                                 False) is split
+        assert D._route({"decoder": {}}, (), tok, (), cfg, train) == route
 
 
 # ---- the decoder's routing (CPU, tier 1)
