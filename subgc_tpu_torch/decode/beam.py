@@ -92,13 +92,16 @@ def _init_group(S: int, bdash: int, cfg: ModelConfig, device) -> _GroupState:
 
 
 def _expand_group(params, feats, gs: _GroupState, t: int, cfg: ModelConfig,
-                  ecfg: EvalConfig, pen, diversity_tokens=None) -> _GroupState:
+                  ecfg: EvalConfig, pen, diversity_tokens=None,
+                  split=None) -> _GroupState:
     """One beam step at local time t: decode from the carried tokens, then
     expand.  ``diversity_tokens`` [S, n]: the tokens earlier groups chose at
-    this local time; each occurrence subtracts ``diversity_lambda``."""
+    this local time; each occurrence subtracts ``diversity_lambda``.
+    ``split``: the search's ``decoder.SplitWeights``."""
     S, bdash, T = gs.beam_seq.shape
     with span("subgc.decode.step"):
-        lp, state, _ = D.decode_step(params, gs.state, gs.token, feats, cfg)
+        lp, state, _ = D.decode_step(params, gs.state, gs.token, feats, cfg,
+                                     split=split)
     V1 = lp.shape[-1]
 
     logprobsf = lp
@@ -175,6 +178,7 @@ def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
                          f"group_size {G}")
     with span("subgc.decode"):
         params = D.cast_decoder_weights(params, cfg)     # once per call
+        split = D.SplitWeights()     # the split route's weights, once a call
         bdash = ecfg.beam_size // G
         T = cfg.seq_length
         S = feats.fc.shape[0]
@@ -198,7 +202,8 @@ def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
                 div = torch.cat([groups[pg].beam_seq[..., lt]
                                  for pg in range(g)], dim=-1) if g else None
                 groups[g] = _expand_group(params, feats, groups[g], lt, cfg,
-                                          ecfg, pen, diversity_tokens=div)
+                                          ecfg, pen, diversity_tokens=div,
+                                          split=split)
 
         seqs, lps, ps = zip(*(_top_done(gs, bdash) for gs in groups))
         all_seqs, all_lps = torch.cat(seqs, 1), torch.cat(lps, 1)

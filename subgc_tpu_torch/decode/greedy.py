@@ -76,6 +76,7 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     """
     with span("subgc.decode"):
         params = D.cast_decoder_weights(params, cfg)     # once per call
+        split = D.SplitWeights()     # the split route's weights, once a call
         S = feats.fc.shape[0]
         T = cfg.seq_length
         dev = feats.fc.device
@@ -91,7 +92,7 @@ def sample(params, feats: D.PreparedFeatures, cfg: ModelConfig,
         for t in range(T + 1 if ecfg.return_att else T):
             with span("subgc.decode.step"):
                 lp, state, att_w = D.decode_step(params, state, it, feats,
-                                                 cfg)
+                                                 cfg, split=split)
             if ecfg.use_topk_sampling:
                 lp2 = torch.log_softmax(lp / ecfg.topk_temp, dim=-1)
                 nxt = D.draw_categorical(_topk_mask(lp2, ecfg.the_k),

@@ -20,7 +20,7 @@ beam), where the JAX package vmaps over sub-graphs.
 * ``split``: a ``kernels`` step in float32 on the card with
   :data:`SPLIT_GEMM_MIN_ROWS` rows or more, whose seven products go
   through the split-TF32 tensor-core kernel (``ops/gemm.py``, float32
-  accuracy) on the weights as stored.
+  accuracy), on weights split once a decode call (:class:`SplitWeights`).
 
 The projections outside the step are plain ``torch.matmul`` on every
 route.
@@ -47,7 +47,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.attention import row_attention, shared_attention
-from ..ops.gemm import split_gemm
+from ..ops.gemm import prepare_weight, split_gemm
 from ..parallel import distributed as DP
 from .encoder import batch_norm_1d, batch_norm_1d_train
 from .gpn import node_membership
@@ -121,6 +121,30 @@ SPLIT_GEMM_MIN_ROWS = 1000
 
 def _on_card(t) -> bool:
     return t.device.type == "cuda"
+
+
+class SplitWeights:
+    """The ``split`` route's weights for one decode call: each weight a
+    product meets is prepared (``ops/gemm.py::prepare_weight``: its TF32
+    halves, transposed) at its first use and reused by the call's later
+    steps, since the seven weights serve every step.  A weight is known by
+    its device, storage, shape and strides.  Each decode loop
+    (``greedy.sample``, ``beam.beam_search``, :func:`forward_teacher`, the
+    SCST rollout) makes its own and drops it when it returns, so nothing is
+    kept across calls: a weight updated in place between calls is prepared
+    again."""
+
+    def __init__(self):
+        self._prepared = {}
+
+    def product(self, x, w, b=None):
+        """``x @ w (+ b)`` through the split-TF32 kernel on ``w``'s
+        prepared halves."""
+        key = (w.device, w.data_ptr(), tuple(w.shape), w.stride())
+        pw = self._prepared.get(key)
+        if pw is None:
+            pw = self._prepared[key] = prepare_weight(w)
+        return split_gemm(x, pw, b)
 
 
 def cast_decoder_weights(params, cfg: ModelConfig):
@@ -560,14 +584,15 @@ def _route(params, state, token, feats, cfg: ModelConfig, train,
     return "kernels"
 
 
-def _product(route: str, dt, bf16_gates: bool):
+def _product(route: str, dt, bf16_gates: bool, split=None):
     """The route's product ``(x, w, b=None) -> x @ w`` (+ ``b``): the
-    split-TF32 kernel, ``b`` joining in its epilogue, on the ``split``
-    route; otherwise torch's, rounded in the compute dtype (and kept in
-    bf16 under bf16 gates) by :func:`_matmul`, or with ``b`` the biased
-    :func:`_dense`."""
+    split-TF32 kernel on ``split``'s prepared weights, ``b`` joining in its
+    epilogue, on the ``split`` route (a new :class:`SplitWeights` where
+    ``split`` is None); otherwise torch's, rounded in the compute dtype
+    (and kept in bf16 under bf16 gates) by :func:`_matmul`, or with ``b``
+    the biased :func:`_dense`."""
     if route == "split":
-        return split_gemm
+        return (split if split is not None else SplitWeights()).product
 
     def product(x, w, b=None):
         if b is None:
@@ -578,7 +603,8 @@ def _product(route: str, dt, bf16_gates: bool):
 
 def decode_step(params, state: DecoderState, token,
                 feats: PreparedFeatures, cfg: ModelConfig,
-                train: bool = False, generator=None, xt_ih=None):
+                train: bool = False, generator=None, xt_ih=None,
+                split: Optional[SplitWeights] = None):
     """One decoder step.  token [...] int -> (logprobs [..., V+1], state,
     att weights).  With a beam axis (token [S, B]) each sub-graph's features
     are shared by its beams.
@@ -587,7 +613,10 @@ def decode_step(params, state: DecoderState, token,
     embedding and on the lang-LSTM output before the logit, and
     ``cfg.bf16_residuals`` selects the bfloat16-residual LSTM backward.
     ``xt_ih`` is the word embedding's precomputed att-LSTM gate share
-    [S, 4R] (:func:`forward_teacher` hoists all T of them).
+    [S, 4R] (:func:`forward_teacher` hoists all T of them).  ``split``: the
+    decode call's :class:`SplitWeights`, which the ``split`` route's
+    products read their weights from; a loop of steps passes one to every
+    step (without it the step prepares its own).
 
     The step's route (:func:`_route`, once a step) chooses the attention,
     :func:`attention_teacher` on the ``autograd`` route and the kernels
@@ -609,7 +638,7 @@ def decode_step(params, state: DecoderState, token,
     R1 = cfg.rnn_size
     bf16g = cfg.bf16_lstm_gates and dt != F32
     route = _route(params, state, token, feats, cfg, train, xt_ih)
-    mm = _product(route, dt, bf16g)
+    mm = _product(route, dt, bf16g, split)
     cell = (_LSTMNonlinB16R.apply if cfg.bf16_residuals and train
             else _lstm_nonlin)
     w_ih = dec["att_lstm"]["w_ih"]
@@ -669,6 +698,7 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
     dec = params["decoder"]
     dev = seq.device
     state = init_state(S, cfg, dev)
+    split = SplitWeights()
     lps = []
     if ss_prob is None:
         R1 = cfg.rnn_size
@@ -681,7 +711,8 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
                         ).reshape(n_steps, S, -1)
         for i in range(n_steps):
             lp, state, _ = decode_step(params, state, seq[:, i], feats, cfg,
-                                       train, generator, xt_ih=xt_ih[i])
+                                       train, generator, xt_ih=xt_ih[i],
+                                       split=split)
             lps.append(lp)
         return torch.stack(lps, 1)
     ss_gen = generator if generator is not None else \
@@ -693,6 +724,6 @@ def forward_teacher(params, feats: PreparedFeatures, seq, cfg: ModelConfig,
             sampled = draw_categorical(lps[-1].detach(), ss_gen)
             token = torch.where(use, sampled, token)
         lp, state, _ = decode_step(params, state, token, feats, cfg, train,
-                                   generator)
+                                   generator, split=split)
         lps.append(lp)
     return torch.stack(lps, 1)

@@ -81,9 +81,10 @@ def _rollout(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     st = D.init_state(S, cfg, dev)
     it = torch.zeros((S,), dtype=torch.int64, device=dev)
     unfinished = torch.ones((S,), dtype=torch.bool, device=dev)
+    split = D.SplitWeights()
     seq, lps = [], []
     for t in range(cfg.seq_length):
-        lp, st, _ = D.decode_step(params, st, it, feats, cfg)
+        lp, st, _ = D.decode_step(params, st, it, feats, cfg, split=split)
         nxt = (lp.argmax(-1) if generator is None
                else D.draw_categorical(lp, generator))
         lps.append(lp.gather(1, nxt[:, None])[:, 0])
@@ -137,9 +138,10 @@ def sample_logprobs(params, state, batch: TrainBatch, sample_seq,
     S, T = sample_seq.shape
     st = D.init_state(S, cfg, sample_seq.device)
     it = torch.zeros((S,), dtype=torch.int64, device=sample_seq.device)
+    split = D.SplitWeights()
     lps = []
     for t in range(T):
-        lp, st, _ = D.decode_step(p, st, it, feats, cfg)
+        lp, st, _ = D.decode_step(p, st, it, feats, cfg, split=split)
         it = sample_seq[:, t]
         lps.append(lp.gather(1, it[:, None])[:, 0])
     return torch.stack(lps, 1)

@@ -1,7 +1,10 @@
 """The split-TF32 GEMM (``ops/gemm.py``, ``ops/csrc/gemm.cu``): the plain
-version's accuracy, the wrapper's checks, the decoder's routing by device,
-rows, dtype and gradient, and, on a card, the kernel against float64, its
-launches on the decode paths and the tokens of an M-RNN dispatch.
+versions' accuracy (the product, and the weight's preparation into its
+TF32 halves, transposed), the wrapper's checks, the decoder's routing by
+device, rows, dtype and gradient and its one preparation of each weight a
+decode call, and, on a card, the kernels against float64 and the plain
+preparation, their launches on the decode paths and the tokens of an
+M-RNN dispatch.
 
 This file imports neither jax nor the JAX package, so the ``cuda`` tests run
 on a GPU machine that has only PyTorch:
@@ -80,6 +83,55 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(y, GM.split_gemm_ref(x, w, b))
     assert torch.equal(GM.split_gemm_ref(x, w, b),
                        GM.split_gemm_ref(x, w) + b)
+
+
+@pytest.mark.parametrize("K,N", [(1000, 40), (999, 7), (5, 3), (1, 1)])
+def test_plain_preparation_is_the_tf32_halves_transposed(K, N):
+    """``hi == tf32(w).T`` and ``lo == tf32(w - hi).T`` bit for bit, each
+    row zero-padded to a multiple of 4 floats (16 bytes)."""
+    w = torch.randn(K, N, generator=torch.Generator().manual_seed(K + N))
+    pw = GM.prepare_weight(w)
+    Kp = pw.planes.shape[-1]
+    assert (pw.K, pw.N, pw.planes.shape) == (K, N, (2, N, Kp))
+    assert Kp % 4 == 0 and K <= Kp < K + 4
+    hi = GM.tf32_round(w)
+    lo = GM.tf32_round(w - hi)
+    bits = [t.contiguous().view(torch.int32) for t in
+            (pw.planes[0, :, :K], hi.T, pw.planes[1, :, :K], lo.T)]
+    assert torch.equal(bits[0], bits[1]) and torch.equal(bits[2], bits[3])
+    assert not pw.planes[:, :, K:].any()
+
+
+@pytest.mark.parametrize("lead", [(5,), (7, 2)])
+def test_prepared_weight_is_the_raw_weight_bit_for_bit(lead):
+    """``split_gemm`` on a prepared weight gives what it gives on the raw
+    weight (a row slice of an LSTM's ``w_ih``), bias or not."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(lead + (48,), generator=g)
+    w = torch.randn(3 * 48, 40, generator=g)[48:96]
+    b = torch.randn(40, generator=g)
+    pw = GM.prepare_weight(w)
+    for bias in (None, b):
+        y = GM.split_gemm(x, pw, bias)
+        assert y.shape == lead + (40,)
+        assert torch.equal(y, GM.split_gemm(x, w, bias))
+    assert torch.equal(GM.split_gemm(x, pw, b), GM.split_gemm(x, pw) + b)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_empty_sum_is_the_bias_or_zeros(bias):
+    """K = 0: the product is an empty sum, so the result is the bias, or
+    zeros, through a raw or a prepared weight."""
+    w, b = torch.zeros(0, 6), (torch.randn(6) if bias else None)
+    want = (b.expand(4, 6) if bias else torch.zeros(4, 6))
+    for ww in (w, GM.prepare_weight(w)):
+        assert torch.equal(GM.split_gemm(torch.zeros(4, 0), ww, b), want)
+
+
+def test_checks_refuse_a_prepared_weight_of_another_k():
+    pw = GM.prepare_weight(torch.randn(16, 8))
+    with pytest.raises(ValueError):
+        GM.split_gemm(torch.randn(5, 15), pw)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "inner", "k_stride", "bias"])
@@ -173,8 +225,8 @@ def test_cpu_decode_keeps_torch_products(kind, monkeypatch):
 def test_card_decode_routes_seven_products_a_step(kind, monkeypatch):
     """With the tensors taken for a card's (the plain version runs in the
     kernel's place) and the row threshold at the tiny decode's rows, every
-    step's seven products go through split_gemm on the weights as stored,
-    and the tokens stay torch's."""
+    step's seven products go through split_gemm, on weights prepared once
+    a call, and the tokens stay torch's."""
     cfg, params, feats = _tiny(seed=1)
     want = _decode(kind, params, feats, cfg)
     count = _Count()
@@ -185,6 +237,44 @@ def test_card_decode_routes_seven_products_a_step(kind, monkeypatch):
     got = _decode(kind, params, feats, cfg)
     assert count.calls == 7 * cfg.seq_length
     assert torch.equal(got, want)
+
+
+class _CountPreps:
+    def __init__(self, prepare):
+        self.prepare, self.calls = prepare, 0
+
+    def __call__(self, w):
+        self.calls += 1
+        return self.prepare(w)
+
+
+def _decode_out(kind, params, feats, cfg):
+    if kind == "sample":
+        out = G.sample(params, feats, cfg, EvalConfig(beam_size=1))
+        return out.seq, out.logprobs
+    out = B.beam_search(params, feats, cfg, EvalConfig(beam_size=2))
+    return out.all_seqs, out.all_ps
+
+
+@pytest.mark.parametrize("kind", ["sample", "beam"])
+def test_card_decode_prepares_seven_weights_a_call(kind, monkeypatch):
+    """On the ``split`` route a decode call prepares each of its seven
+    weights once, not once a step, and each new call prepares them again;
+    its tokens and log-probs are those of a decode whose products take the
+    raw weights (and prepare them every product)."""
+    cfg, params, feats = _tiny(seed=4)
+    monkeypatch.setattr(D, "_on_card", lambda t: True)
+    monkeypatch.setattr(D, "SPLIT_GEMM_MIN_ROWS", feats.fc.shape[0])
+    count = _CountPreps(GM.prepare_weight)
+    monkeypatch.setattr(D, "prepare_weight", count)
+    got = _decode_out(kind, params, feats, cfg)
+    assert count.calls == 7
+    _decode_out(kind, params, feats, cfg)
+    assert count.calls == 14
+    monkeypatch.setattr(D, "prepare_weight", lambda w: w)     # raw weights
+    want = _decode_out(kind, params, feats, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("route", ["train", "autograd", "bfloat16", "rows"])
@@ -239,6 +329,61 @@ def test_kernel_keeps_float32_accuracy_on_card(M, N, k, lead):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,N,k,lead", [
+    (4861, 4000, K, None), (4859, 9488, K, None),   # M-RNN, ragged M
+    (320, 4000, K, (160, 2)), (320, 9488, K, (160, 2)),   # Kar's beam
+    (3, 4000, K, None), (3, 9488, K, None),           # Full-GC
+    (65, 333, K, None), (130, 77, 999, None),         # ragged N; K % 4 != 0
+    (4750, 4000, K, None), (4890, 3998, K, None),     # mrnn_test's kept rows
+    (16000, 4000, K, None),           # several tiles a persistent block
+    (4860, 4000, 999, None), (1, 77, 999, None),
+])
+def test_prepared_kernel_keeps_float32_accuracy_on_card(M, N, k, lead):
+    """The kernel on a prepared weight, as the decode calls it: float32
+    accuracy against float64, the raw weight's result bit for bit, the
+    bias as a float32 add after the product, a bitwise repeat, and an A
+    whose rows are not 16 bytes apart (copied into a padded buffer)."""
+    dev = _card()
+    x, w = (t.to(dev) for t in _operands(M, N, k, seed=M + N + k))
+    b = torch.randn(N, device=dev)
+    ref = x.double() @ w.double()
+    GM.reset_launch_counts()
+    pw = GM.prepare_weight(w)
+    xl = x.reshape(lead + (k,)) if lead else x
+    y = GM.split_gemm(xl, pw).reshape(M, N)
+    yb = GM.split_gemm(xl, pw, b).reshape(M, N)
+    torch.cuda.synchronize()
+    assert (GM.GEMM_LAUNCHES, GM.GEMM_WEIGHT_PREPS) == (2, 1)
+    err, f32 = _max_err(y, ref), _max_err(x @ w, ref)
+    one = _max_err(GM.tf32_round(x) @ GM.tf32_round(w), ref)
+    assert err <= 4 * f32, (err, f32)
+    assert 100 * err <= one, (err, one)
+    assert torch.equal(yb, y + b)
+    assert torch.equal(GM.split_gemm(xl, pw).reshape(M, N), y)    # repeat
+    assert torch.equal(GM.split_gemm(xl, w).reshape(M, N), y)     # raw w
+    wide = torch.zeros((M, k + 3), device=dev)
+    wide[:, 1:k + 1] = x
+    xs = wide[:, 1:k + 1]                 # rows k + 3 floats apart, offset
+    assert torch.equal(GM.split_gemm(xs, pw), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_,N", [(1000, 4000), (999, 333), (3, 5)])
+def test_preparation_matches_plain_on_card(K_, N):
+    """The preparation kernel's planes are the plain version's, bit for
+    bit, padding included; a weight row slice reads as it is stored."""
+    dev = _card()
+    w = torch.randn((K_ + 2, N + 1), generator=torch.Generator().manual_seed(
+        K_))[1:K_ + 1, :N]
+    pw = GM.prepare_weight(w.to(dev))
+    torch.cuda.synchronize()
+    ref = GM.prepare_weight_ref(w)
+    assert pw.planes.shape == ref.planes.shape
+    assert torch.equal(pw.planes.cpu().view(torch.int32),
+                       ref.planes.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ragged", [False, True])
 def test_weight_slices_and_bias_on_card(ragged):
     """A row slice of an LSTM's ``w_ih`` (3,000 rows, 4,000 floats apart)
@@ -257,6 +402,28 @@ def test_weight_slices_and_bias_on_card(ragged):
     assert torch.equal(yb, y + b)
     torch.testing.assert_close(y, GM.split_gemm_ref(xs, ws), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+def test_empty_shapes_on_card(bias):
+    """K = 0 launches the kernel, which writes the bias or zeros and
+    prepares nothing; M = 0 launches nothing.  The counters move only
+    where a kernel launched."""
+    dev = _card()
+    b = torch.randn(6, device=dev) if bias else None
+    GM.reset_launch_counts()
+    pw = GM.prepare_weight(torch.zeros((0, 6), device=dev))
+    y = GM.split_gemm(torch.zeros((300, 0), device=dev), pw, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, b.expand(300, 6) if bias else
+                       torch.zeros((300, 6), device=dev))
+    assert (GM.GEMM_LAUNCHES, GM.GEMM_WEIGHT_PREPS) == (1, 0)
+    w = torch.randn((40, 6), device=dev)
+    y = GM.split_gemm(torch.zeros((0, 40), device=dev), w, b)
+    torch.cuda.synchronize()
+    assert y.shape == (0, 6)
+    assert (GM.GEMM_LAUNCHES, GM.GEMM_WEIGHT_PREPS) == (1, 1)
 
 
 def _card_tiny(seed=2):
@@ -280,7 +447,8 @@ def _np(tree):
 @pytest.mark.parametrize("kind", ["sample", "beam"])
 @pytest.mark.parametrize("above", [True, False])
 def test_seven_launches_a_step_on_card(kind, above, monkeypatch):
-    """Seven launches a step at the row threshold, none below it."""
+    """Seven launches a step and seven weight preparations a call at the
+    row threshold, none below it."""
     cfg, params, feats = _card_tiny()
     rows = feats.fc.shape[0] * (2 if kind == "beam" else 1)   # [S, beams]
     monkeypatch.setattr(D, "SPLIT_GEMM_MIN_ROWS", rows + (not above))
@@ -288,6 +456,7 @@ def test_seven_launches_a_step_on_card(kind, above, monkeypatch):
     _decode(kind, params, feats, cfg)
     torch.cuda.synchronize()
     assert GM.GEMM_LAUNCHES == (7 * cfg.seq_length if above else 0)
+    assert GM.GEMM_WEIGHT_PREPS == (7 if above else 0)
 
 
 def _top2_gaps(params, feats, cfg, seq):
@@ -339,6 +508,7 @@ def test_mrnn_dispatch_tokens_match_torch_on_card(monkeypatch):
     got = G.sample(params, feats, cfg, ecfg).seq
     torch.cuda.synchronize()
     assert GM.GEMM_LAUNCHES == 7 * cfg.seq_length
+    assert GM.GEMM_WEIGHT_PREPS == 7
     with monkeypatch.context() as m:
         m.setattr(D, "_on_card", lambda t: False)      # torch's products
         want = G.sample(params, feats, cfg, ecfg).seq
