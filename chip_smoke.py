@@ -309,6 +309,17 @@ in training.  A test decode's rows are its dispatch's kept sub-graphs
 (under SCT its real region sets) times the beams, not its keep slots:
 only those decode.
 
+Phase 29 runs after phase 5: the Sub_GC_Kar beam decode of one 16-image
+dispatch (phase 4's first images, all 160 rows, beam 2) eagerly (the
+graph cache cleared before each call) and from the captured CUDA graphs
+(``decode/graphs.py``: the key's first call eager, its second captures,
+then replays): the capture's and the replays' outputs equal the eager
+search's bit for bit (``seq``, ``logprobs``, ``all_seqs``, ``all_ps``),
+one chain kept, and the replays' attention launches exactly seq_length a
+search (the projection with each, no split-TF32 GEMM at 320 rows); the
+median synchronised wall and the host's enqueue time of both ways, and
+the capture call's ms and device memory.
+
 Prints a ``{"kernels": [...]}`` line (both attention kernels, their bf16
 variants and the split-TF32 GEMM), then ``{"ok": true, "device": ...}`` as
 the last line.  Needs
@@ -665,14 +676,23 @@ def check_gemm_launches(label, rows, steps, per_step=7, calls=1):
     return want
 
 
-def dispatch_rows(preds, batch, beams=1):
+def dispatch_rows(preds, batch, beams=1, slots=None):
     """The rows each dispatch of a ``run_test_split`` decodes, from its
     predictions (split order): its images' kept sub-graphs, one caption
     each, the last dispatch's padding images repeating its last image,
-    times the beams."""
+    times the beams.  ``slots``: a beam search's keep slots an image; the
+    kept rows are then rounded up as the runner rounds them on the card
+    (``eval/runner.py::BEAM_ROW_BUCKET``, at most every slot)."""
+    from subgc_tpu_torch.eval.runner import BEAM_ROW_BUCKET
     kept = [len(p["caption"]) for p in preds]
-    return [beams * (sum(c) + (batch - len(c)) * c[-1])
-            for c in (kept[i:i + batch] for i in range(0, len(kept), batch))]
+    out = []
+    for c in (kept[i:i + batch] for i in range(0, len(kept), batch)):
+        n = sum(c) + (batch - len(c)) * c[-1]
+        if slots is not None and 0 < n < batch * slots:
+            n = min(-(-n // BEAM_ROW_BUCKET) * BEAM_ROW_BUCKET,
+                    batch * slots)
+        out.append(beams * n)
+    return out
 
 
 def serving_rows(kept, beams):
@@ -974,6 +994,85 @@ def phase_times(params, state, examples, cfg, ecfg, device):
             enc_ms.append(1e3 * (t1 - t0))
             dec_ms.append(1e3 * (time.perf_counter() - t1))
     return statistics.median(enc_ms[1:]), statistics.median(dec_ms[1:])
+
+
+GRAPH_RUNS = 20          # phase 29: timed searches each way
+
+
+def run_graphs(params, state, examples, cfg, ecfg):
+    """Phase 29 (the module docstring); returns its numbers."""
+    import torch
+    from subgc_tpu_torch.decode import beam as beam_mod
+    from subgc_tpu_torch.decode import graphs as GR
+    from subgc_tpu_torch.eval.runner import _stack_examples
+    from subgc_tpu_torch.graph import to_device
+    from subgc_tpu_torch.models.subgc import encode_images_batched
+    from subgc_tpu_torch.ops import attention as A
+    graph, subs = (to_device(x, "cuda")
+                   for x in _stack_examples(examples[:BATCH_IMAGES]))
+    with torch.no_grad():
+        feats = encode_images_batched(params, state, graph, subs, cfg,
+                                      ecfg).feats
+    rows = feats.fc.shape[0]
+
+    def timed(eager):
+        walls, hosts = [], []
+        for _ in range(GRAPH_RUNS):
+            if eager:
+                GR.SEARCHES.clear()     # every call a key's first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = beam_mod.beam_search(params, feats, cfg, ecfg)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            hosts.append(1e3 * (t1 - t0))
+        return (out, statistics.median(walls[2:]),
+                statistics.median(hosts[2:]))
+
+    eager, eager_ms, eager_host = timed(eager=True)
+    GR.SEARCHES.clear()
+    beam_mod.beam_search(params, feats, cfg, ecfg)      # the key's first
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    captured = beam_mod.beam_search(params, feats, cfg, ecfg)
+    torch.cuda.synchronize()
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    chain_bytes = torch.cuda.memory_allocated() - mem
+    A.reset_launch_counts()
+    reset_gemm()
+    replayed, graph_ms, graph_host = timed(eager=False)
+    torch.cuda.synchronize()
+    for way, out in (("capture", captured), ("replay", replayed)):
+        for name, a, b in zip(eager._fields, out, eager):
+            if a.shape != b.shape or not torch.equal(a, b):
+                fail(f"graphs: the {way}'s {name} differs from the eager "
+                     f"search's")
+    if len(GR.SEARCHES) != 1:
+        fail(f"graphs: {len(GR.SEARCHES)} chains kept for one key")
+    launches = A.LAUNCHES
+    if launches != GRAPH_RUNS * cfg.seq_length or A.ROW_LAUNCHES:
+        fail(f"graphs: attention kernel launched {launches} times in "
+             f"{GRAPH_RUNS} replayed searches (row kernel "
+             f"{A.ROW_LAUNCHES}), expected {GRAPH_RUNS} x "
+             f"{cfg.seq_length} (and 0)")
+    check_project_launches("graphs", launches)
+    check_gemm_launches("graphs", rows * ecfg.beam_size, cfg.seq_length,
+                        calls=GRAPH_RUNS)
+    stats = {"rows": rows, "beams": ecfg.beam_size,
+             "eager_ms": round(eager_ms, 4),
+             "eager_host_ms": round(eager_host, 4),
+             "graph_ms": round(graph_ms, 4),
+             "graph_host_ms": round(graph_host, 4),
+             "capture_call_ms": round(capture_ms, 2),
+             "chain_bytes": chain_bytes, "attention_launches": launches}
+    print(f"graphs: {rows} rows x {ecfg.beam_size} beams, bit for bit the "
+          f"eager search's; eager {eager_ms:.2f} ms (host "
+          f"{eager_host:.2f}), graphs {graph_ms:.2f} ms (host "
+          f"{graph_host:.2f}); capture call {capture_ms:.1f} ms, "
+          f"{chain_bytes / 2**20:.1f} MiB; attention launches {launches}")
+    return stats
 
 
 def compare_card_cpu(gpu_preds, cpu_preds):
@@ -1343,7 +1442,8 @@ def run_sct(preset, params_np, state_np, vocab, seed):
     launches = A.LAUNCHES
     n_dispatch = -(-SCT_IMAGES // BATCH_IMAGES)
     check_gemm_launches(preset,
-                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size),
+                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size,
+                                      SCT_BUCKET),
                         cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"{preset}: beam-shared kernel launched {launches} times, row "
@@ -2829,7 +2929,8 @@ def run_diverse(params, cpu_params, state, examples, vocab):
         # each group's beams: beam_size / group_size of them a row
         check_gemm_launches(
             f"diverse {dtype}", 0 if dtype == "bfloat16" else dispatch_rows(
-                preds, BATCH_IMAGES, ecfg.beam_size // ecfg.group_size),
+                preds, BATCH_IMAGES, ecfg.beam_size // ecfg.group_size,
+                ecfg.gpn_max_subg),
             ecfg.group_size * cfg.seq_length)
         name = "LAUNCHES" if dtype == "float32" else "SHARED_BF16_LAUNCHES"
         n = getattr(A, name)
@@ -3330,7 +3431,8 @@ def run_sharded(params, params_np, state, examples, preds, fan_examples,
     launches = A.LAUNCHES
     check_project_launches("image-axis sharded path", launches)
     check_gemm_launches("image-axis sharded path", dispatch_rows(
-        got, BATCH_IMAGES // n, ecfg.beam_size), cfg.seq_length)
+        got, BATCH_IMAGES // n, ecfg.beam_size, ecfg.gpn_max_subg),
+        cfg.seq_length)
     stats["image_axis"] = compare_sharded(
         f"image axis (Sub_GC_Kar, {N_IMAGES} images)", got,
         preds[:N_IMAGES], launches, batches * n * cfg.seq_length, wall,
@@ -3844,7 +3946,9 @@ def run_published(workdir, device="cuda"):
     preds, wall, n_caps = run_test_cli(ckpt, man, device, "card")
     launches = A.LAUNCHES
     check_gemm_launches("27a", dispatch_rows(preds, PUBLISHED_IMAGES,
-                                             ecfg.beam_size), cfg.seq_length)
+                                             ecfg.beam_size,
+                                             ecfg.gpn_max_subg),
+                        cfg.seq_length)
     if launches != cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"27a: beam-shared kernel launched {launches} times, row "
              f"kernel {A.ROW_LAUNCHES}; expected 1 dispatch x "
@@ -3993,7 +4097,8 @@ def main():
     launches = A.LAUNCHES
     n_dispatch = -(-N_IMAGES // BATCH_IMAGES)
     check_gemm_launches("main path",
-                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size),
+                        dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size,
+                                      ecfg.gpn_max_subg),
                         cfg.seq_length)
     if launches != n_dispatch * cfg.seq_length or A.ROW_LAUNCHES:
         fail(f"attention kernel launched {launches} times on the main path "
@@ -4019,6 +4124,10 @@ def main():
           f"{n_same}/{n_total} captions identical, keep sets identical")
     if n_same < 0.95 * n_total:
         fail(f"only {n_same}/{n_total} captions agree between card and cpu")
+
+    # ---- 29. the beam search from captured CUDA graphs against eager
+    print(json.dumps({"graphs": run_graphs(params, state, examples, cfg,
+                                           ecfg)}))
 
     # ---- 6. the per-row kernel; the beam-shared kernel at one beam
     row_checks = [check_row_attention(params, S_main, seed=5),

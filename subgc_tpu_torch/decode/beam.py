@@ -39,6 +39,7 @@ from ..config import EvalConfig, ModelConfig
 from ..models import decoder as D
 from ..utils.penalty import penalty_fn
 from ..utils.profiling import span
+from . import graphs
 
 
 class BeamOut(NamedTuple):
@@ -160,6 +161,49 @@ def _top_done(gs: _GroupState, bdash: int):
             gs.done_p[rows, top_i])
 
 
+def _search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
+            ecfg: EvalConfig):
+    """:func:`beam_search`'s body as a generator: it yields after each
+    outer step and returns the :class:`BeamOut`.  ``graphs.py`` runs it to
+    its end, or captures each stretch between two yields as a CUDA graph;
+    whatever the search derives from ``params`` and ``feats`` is derived
+    inside it, so a replay derives it again."""
+    G = ecfg.group_size
+    params = D.cast_decoder_weights(params, cfg)     # once per call
+    split = D.SplitWeights()     # the split route's weights, once a call
+    bdash = ecfg.beam_size // G
+    T = cfg.seq_length
+    S = feats.fc.shape[0]
+    device = feats.fc.device
+    if feats.att_img is not None:
+        ai, pi = feats.att_img, feats.p_att_img
+        if ai.dim() == 2:                       # single-image layout
+            ai, pi = ai[None], pi[None]
+        ii = feats.img_ix if feats.img_ix is not None \
+            else torch.zeros((S,), dtype=torch.int64, device=device)
+        feats = feats._replace(att_img=ai, p_att_img=pi, img_ix=ii)
+    pen = penalty_fn(ecfg.length_penalty)
+
+    groups = [_init_group(S, bdash, cfg, device) for _ in range(G)]
+    # outer step t: group g is active at local time t - g in [0, T); the
+    # groups update in ascending order, so group g reads groups < g as this
+    # step left them (CaptionModel.py:122-171)
+    for t in range(T + G - 1):
+        for g in range(max(0, t - T + 1), min(G, t + 1)):
+            lt = t - g
+            div = torch.cat([groups[pg].beam_seq[..., lt]
+                             for pg in range(g)], dim=-1) if g else None
+            groups[g] = _expand_group(params, feats, groups[g], lt, cfg,
+                                      ecfg, pen, diversity_tokens=div,
+                                      split=split)
+        yield
+
+    seqs, lps, ps = zip(*(_top_done(gs, bdash) for gs in groups))
+    all_seqs, all_lps = torch.cat(seqs, 1), torch.cat(lps, 1)
+    return BeamOut(seq=all_seqs[:, 0], logprobs=all_lps[:, 0],
+                   all_seqs=all_seqs, all_ps=torch.cat(ps, 1))
+
+
 @torch.no_grad()
 def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
                 ecfg: EvalConfig) -> BeamOut:
@@ -171,41 +215,14 @@ def beam_search(params, feats: D.PreparedFeatures, cfg: ModelConfig,
     row's features, so each decode step launches the beam-shared attention
     once at B = bdash.  Runs without autograd, so params that require grad
     decode as their detached copies do.
+
+    On the card a search whose key (``graphs.py``) was seen before replays
+    from captured CUDA graphs, one an outer step, with the same kernels and
+    the same bits as the eager search; its outputs are the caller's own.
     """
     G = ecfg.group_size
     if G < 1 or ecfg.beam_size % G:
         raise ValueError(f"beam_size {ecfg.beam_size} must be a multiple of "
                          f"group_size {G}")
     with span("subgc.decode"):
-        params = D.cast_decoder_weights(params, cfg)     # once per call
-        split = D.SplitWeights()     # the split route's weights, once a call
-        bdash = ecfg.beam_size // G
-        T = cfg.seq_length
-        S = feats.fc.shape[0]
-        device = feats.fc.device
-        if feats.att_img is not None:
-            ai, pi = feats.att_img, feats.p_att_img
-            if ai.dim() == 2:                       # single-image layout
-                ai, pi = ai[None], pi[None]
-            ii = feats.img_ix if feats.img_ix is not None \
-                else torch.zeros((S,), dtype=torch.int64, device=device)
-            feats = feats._replace(att_img=ai, p_att_img=pi, img_ix=ii)
-        pen = penalty_fn(ecfg.length_penalty)
-
-        groups = [_init_group(S, bdash, cfg, device) for _ in range(G)]
-        # outer step t: group g is active at local time t - g in [0, T); the
-        # groups update in ascending order, so group g reads groups < g as
-        # this step left them (CaptionModel.py:122-171)
-        for t in range(T + G - 1):
-            for g in range(max(0, t - T + 1), min(G, t + 1)):
-                lt = t - g
-                div = torch.cat([groups[pg].beam_seq[..., lt]
-                                 for pg in range(g)], dim=-1) if g else None
-                groups[g] = _expand_group(params, feats, groups[g], lt, cfg,
-                                          ecfg, pen, diversity_tokens=div,
-                                          split=split)
-
-        seqs, lps, ps = zip(*(_top_done(gs, bdash) for gs in groups))
-        all_seqs, all_lps = torch.cat(seqs, 1), torch.cat(lps, 1)
-        return BeamOut(seq=all_seqs[:, 0], logprobs=all_lps[:, 0],
-                       all_seqs=all_seqs, all_ps=torch.cat(ps, 1))
+        return graphs.SEARCHES.run(_search, params, feats, cfg, ecfg)

@@ -57,6 +57,11 @@ from ..utils.text import decode_sequence
 
 # PreparedFeatures' row-leading fields; att_img / p_att_img are per image
 ROW_FIELDS = ("fc", "att", "p_att", "mask", "fc_ih", "img_ix")
+# a beam search on the card replays captured graphs by its row count
+# (decode/graphs.py), so its kept rows are gathered in multiples of this
+# many, the last padded by repeats of the first kept row: a split's
+# dispatches then share a few keys, not one key a kept count
+BEAM_ROW_BUCKET = 32
 
 
 def _take_rows(feats, idx):
@@ -85,6 +90,19 @@ def _decode_rows(params, feats, cfg: ModelConfig, ecfg: EvalConfig,
     return res
 
 
+def _row_bucket(feats, ecfg: EvalConfig) -> int:
+    """The multiple :func:`_decode` gathers kept rows in:
+    :data:`BEAM_ROW_BUCKET` for a beam search on the card, else 1."""
+    return BEAM_ROW_BUCKET if ecfg.beam_size > 1 and feats.fc.is_cuda else 1
+
+
+def _bucketed(sel, S, bucket):
+    """``sel`` padded by repeats of its first row to a multiple of
+    ``bucket`` rows, or to ``S`` if that is fewer."""
+    pad = min(-(-sel.numel() // bucket) * bucket, S) - sel.numel()
+    return torch.cat([sel, sel[:1].expand(pad)]) if pad > 0 else sel
+
+
 def _decode(params, feats, keep, cfg: ModelConfig, ecfg: EvalConfig,
             generator=None, rows=None):
     """Beam search, or greedy / top-k at ``beam_size`` 1, of the rows of
@@ -94,14 +112,16 @@ def _decode(params, feats, keep, cfg: ModelConfig, ecfg: EvalConfig,
     finding them is one host sync, and with every row kept nothing is
     gathered.  ``rows=(offset, total)``: the top-k draws are those of rows
     ``offset ..`` of a ``total``-row decode.  A kept row decodes, and
-    draws, as it does in a decode of every row."""
+    draws, as it does in a decode of every row.  A beam search on the card
+    decodes its kept rows in buckets (:data:`BEAM_ROW_BUCKET`)."""
     S = feats.fc.shape[0]
     idx = torch.nonzero(keep).flatten()
     n = idx.numel()
     if n == S:
         return _decode_rows(params, feats, cfg, ecfg, generator, rows)
     # nothing kept: one row decodes, for the outputs' shapes
-    sel = idx if n else idx.new_zeros(1)
+    sel = _bucketed(idx if n else idx.new_zeros(1), S,
+                    _row_bucket(feats, ecfg))
     offset, total = rows if rows is not None else (0, S)
     res = _decode_rows(params, _take_rows(feats, sel), cfg, ecfg, generator,
                        (sel + offset, total))

@@ -76,17 +76,23 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._counts import LaunchCounters
 
 # kernel launches through the wrappers (a test or a run resets them):
 # shared_attention and row_attention in float32 and in bfloat16, and the
-# projection kernel, which every one of the three wrappers launches.  A
-# server launches from several threads at once, so every change to them
-# holds _LOCK, and the first lookup of a kernel entry in _FNS holds _FN_LOCK
+# projection kernel, which every one of the three wrappers launches.  They
+# change only through COUNTS (``_counts.py``: under a lock, as a server
+# launches from several threads at once); a replayed CUDA graph adds the
+# launches its capture counted, so they count kernel runs on every path.
+# The first lookup of a kernel entry in _FNS holds _FN_LOCK
 LAUNCHES = 0
 ROW_LAUNCHES = 0
 SHARED_BF16_LAUNCHES = 0
 ROW_BF16_LAUNCHES = 0
 PROJECT_LAUNCHES = 0
+COUNTS = LaunchCounters(globals(), (
+    "LAUNCHES", "ROW_LAUNCHES", "SHARED_BF16_LAUNCHES", "ROW_BF16_LAUNCHES",
+    "PROJECT_LAUNCHES"))
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
 K_SLICE = 16            # k per ring slice of the projection (kBK)
@@ -101,7 +107,6 @@ TILE_ROWS_BF16 = (16, 32, 64, 128)
 MAX_SPLITS_BF16 = 16
 
 _FNS = {}
-_LOCK = threading.Lock()
 _FN_LOCK = threading.Lock()
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -210,22 +215,14 @@ def project_scratch(plan, Q, H, device):
 
 def reset_launch_counts():
     """Set every launch counter of this module to 0."""
-    global LAUNCHES, ROW_LAUNCHES, SHARED_BF16_LAUNCHES, ROW_BF16_LAUNCHES, \
-        PROJECT_LAUNCHES
-    with _LOCK:
-        LAUNCHES = ROW_LAUNCHES = SHARED_BF16_LAUNCHES = 0
-        ROW_BF16_LAUNCHES = PROJECT_LAUNCHES = 0
+    COUNTS.reset()
 
 
 def count_launch(counter=None):
     """Add one to :data:`PROJECT_LAUNCHES` (every wrapper launches the
-    projection) and to the launch counter named ``counter``, if any, under
-    the lock: concurrent ``+= 1`` from several threads can lose counts."""
-    global PROJECT_LAUNCHES
-    with _LOCK:
-        if counter is not None:
-            globals()[counter] += 1
-        PROJECT_LAUNCHES += 1
+    projection) and to the launch counter named ``counter``, if any."""
+    COUNTS.add({"PROJECT_LAUNCHES": 1} if counter is None
+               else {counter: 1, "PROJECT_LAUNCHES": 1})
 
 
 def _fn(name, n_ptr, n_int):

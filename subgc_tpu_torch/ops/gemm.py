@@ -37,15 +37,16 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._counts import LaunchCounters
 
 # kernel launches through :func:`run_split_gemm` and :func:`prepare_weight`
-# (a test or a run resets them); several serving threads launch at once,
-# so changes hold _LOCK
+# (a test or a run resets them); they change only through COUNTS
+# (``_counts.py``), and a replayed CUDA graph adds what its capture counted
 GEMM_LAUNCHES = 0
 GEMM_WEIGHT_PREPS = 0
+COUNTS = LaunchCounters(globals(), ("GEMM_LAUNCHES", "GEMM_WEIGHT_PREPS"))
 
 _FN = {}
-_LOCK = threading.Lock()
 _FN_LOCK = threading.Lock()
 F32 = torch.float32
 _MAP_BYTES = 128        # a CUtensorMap
@@ -53,24 +54,17 @@ _MAP_BYTES = 128        # a CUtensorMap
 
 def reset_launch_counts():
     """Zero :data:`GEMM_LAUNCHES` and :data:`GEMM_WEIGHT_PREPS`."""
-    global GEMM_LAUNCHES, GEMM_WEIGHT_PREPS
-    with _LOCK:
-        GEMM_LAUNCHES = 0
-        GEMM_WEIGHT_PREPS = 0
+    COUNTS.reset()
 
 
 def count_launch():
-    """Add one to :data:`GEMM_LAUNCHES` under the lock."""
-    global GEMM_LAUNCHES
-    with _LOCK:
-        GEMM_LAUNCHES += 1
+    """Add one to :data:`GEMM_LAUNCHES`."""
+    COUNTS.add({"GEMM_LAUNCHES": 1})
 
 
 def count_prep():
-    """Add one to :data:`GEMM_WEIGHT_PREPS` under the lock."""
-    global GEMM_WEIGHT_PREPS
-    with _LOCK:
-        GEMM_WEIGHT_PREPS += 1
+    """Add one to :data:`GEMM_WEIGHT_PREPS`."""
+    COUNTS.add({"GEMM_WEIGHT_PREPS": 1})
 
 
 class SplitWeight(NamedTuple):

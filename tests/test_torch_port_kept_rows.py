@@ -129,6 +129,34 @@ def test_kept_rows_decode_as_in_a_decode_of_every_row(case):
     assert torch.equal(g_kept.get_state(), g_all.get_state())
 
 
+@pytest.mark.parametrize("bucket", [4, 8, 32])
+@pytest.mark.parametrize("image_shared", [True, False])
+def test_bucketed_beam_rows_decode_as_in_a_decode_of_every_row(
+        bucket, image_shared, monkeypatch):
+    """A beam search on the card gathers its kept rows in buckets, padded
+    by repeats of the first kept row (``runner.BEAM_ROW_BUCKET``); forced
+    here on the CPU, the kept rows decode as in a decode of every row and
+    the search sees the bucket's rows (at most every row)."""
+    cfg, params = _tiny(seed=3)
+    ecfg = EvalConfig(**CASES["verbose_beam"])
+    feats = _feats(cfg, params, image_shared=image_shared)
+    keep = _keep()
+    want = R._decode(params, feats, _every(feats), cfg, ecfg)
+    seen = []
+    search = R.beam_mod.beam_search
+
+    def record(params, feats, cfg, ecfg):
+        seen.append(feats.fc.shape[0])
+        return search(params, feats, cfg, ecfg)
+
+    monkeypatch.setattr(R, "_row_bucket", lambda feats, ecfg: bucket)
+    monkeypatch.setattr(R.beam_mod, "beam_search", record)
+    got = R._decode(params, feats, keep, cfg, ecfg)
+    n, S = int(keep.sum()), feats.fc.shape[0]
+    assert seen == [min(-(-n // bucket) * bucket, S)]
+    _same_kept_rows(got, want, keep)
+
+
 @pytest.mark.parametrize("case", ["greedy", "beam2"])
 def test_every_row_kept_gathers_nothing(case, monkeypatch):
     cfg, params = _tiny(seed=1)
