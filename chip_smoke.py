@@ -320,9 +320,24 @@ search (the projection with each, no split-TF32 GEMM at 320 rows); the
 median synchronised wall and the host's enqueue time of both ways, and
 the capture call's ms and device memory.
 
+Phase 30 runs after phase 28: the sGPN test path's kernels
+(``ops/sgpn.py``) on one test dispatch's shapes, 16 images x 1,024
+sub-graph slots (each image's bank of 1,000 sampled sub-graphs over 36
+detections and 64 relations, ``data/subgraph_sampler.py``) x 37 nodes, L
+= 1,024: the read-out max bit for bit the torch path's masked broadcast,
+its ms beside the broadcast's (``models/gpn.py::masked_max``) and its
+bound (the compulsory bytes at HBM rate), and the device memory the
+broadcast needs; then at each test cell's threshold and keep (``kar_test`` 0.75 and
+10, ``mrnn_test`` 0.55 and 1,000) the NMS kernel's keep sets equal to the
+torch fixpoint's, the kernel's ms beside its bound, ``subgraph_nms``'s ms
+on both routes (the torch route's host-synced rounds counted), and the
+sGPN's test forward and NMS together on both routes, at the model's
+widths, their read-outs and scores equal bit for bit.  Phase 4 checks one
+launch of each kernel a dispatch.
+
 Prints a ``{"kernels": [...]}`` line (both attention kernels, their bf16
-variants and the split-TF32 GEMM), then ``{"ok": true, "device": ...}`` as
-the last line.  Needs
+variants, the split-TF32 GEMM and the two sGPN kernels), then ``{"ok":
+true, "device": ...}`` as the last line.  Needs
 no network and imports no jax.
 """
 import json
@@ -997,6 +1012,159 @@ def phase_times(params, state, examples, cfg, ecfg, device):
 
 
 GRAPH_RUNS = 20          # phase 29: timed searches each way
+# phase 30: a test cell's dispatch, and each test cell's NMS threshold and
+# keep
+SGPN_IMAGES = 16
+SGPN_BUCKET = 1024
+SGPN_CELLS = {"sub_gc.kar_test": (0.75, 10), "sub_gc.mrnn_test": (0.55, 1000)}
+
+
+def sgpn_inputs(n_obj, L, seed=30, B=SGPN_IMAGES, S=SGPN_BUCKET):
+    """A test dispatch's sGPN inputs as numpy arrays: (x [B, n_obj, L] >= 0,
+    obj_ind and att_mask [B, S, n_obj], valid and scores [B, S]), each
+    image's bank of 1,000 sub-graphs sampled over n_obj - 1 detections and
+    64 relations, in the test loader's layout (an even count of real ones,
+    padded slots on the dummy node with its mask 1, invalid)."""
+    from subgc_tpu_torch.data.subgraph_sampler import sample_subgraph_bank
+    rng = np.random.RandomState(seed)
+    N = n_obj
+    oi = np.full((B, S, N), N - 1, np.int64)
+    am = np.zeros((B, S, N), np.float32)
+    am[:, :, 0] = 1.0
+    valid = np.zeros((B, S), bool)
+    for b in range(B):
+        subj = rng.randint(0, N - 1, 64)
+        rels = np.stack([subj, (subj + rng.randint(1, N - 1, 64)) % (N - 1)],
+                        1)
+        nouns = [rng.choice(N - 1, rng.randint(1, 4), replace=False)
+                 for _ in range(5)]
+        bank = sample_subgraph_bank(N - 1, rels, nouns, 1000,
+                                    seed=int(rng.randint(1 << 30)))
+        sets = [np.nonzero(e[1])[0] for e in bank["subgraph_mask_list"][5:]]
+        n = 2 * (len(sets) // 2)
+        for s, nodes in enumerate(sets[:n]):
+            oi[b, s, :len(nodes)] = nodes
+            am[b, s] = 0.0
+            am[b, s, :len(nodes)] = 1.0
+        valid[b, :n] = True
+    x = np.maximum(rng.randn(B, N, L), 0).astype(np.float32)
+    scores = rng.rand(B, S).astype(np.float32)
+    return x, oi, am, valid, scores
+
+
+def run_sgpn(params, cfg):
+    """Phase 30 (the module docstring); returns its numbers."""
+    import torch
+    from subgc_tpu_torch.models import gpn as G
+    from subgc_tpu_torch.ops import sgpn as SG
+    x, oi, am, valid, scores = (torch.from_numpy(a).cuda() for a in
+                                sgpn_inputs(cfg.obj_num, cfg.gcn_dim))
+    B, S, N = oi.shape
+    n_obj, L = x.shape[-2:]
+
+    def torch_route(fn):
+        saved = G._on_card
+        G._on_card = lambda t: False
+        try:
+            return fn()
+        finally:
+            G._on_card = saved
+
+    def broadcast():            # the torch route's max half
+        return G.masked_max(x, G.node_membership(oi, am, n_obj))
+
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    out = torch.empty((B, S, L), device="cuda")
+    if not torch.equal(SG.readout_max(x, oi, am, out=out), broadcast()):
+        fail("sgpn: the read-out kernel differs from the masked broadcast")
+    nbytes = 4 * (x.numel() + am.numel() + B * S * L) + 8 * oi.numel()
+    readout = {
+        "B": B, "S": S, "n_obj": n_obj, "L": L,
+        "ms": cuda_ms(lambda: SG.readout_max(x, oi, am, out=out)),
+        "torch_path_ms": cuda_ms(broadcast),
+        "bound_ms": 1e3 * nbytes / HBM_RATE, "bound_by": "bytes",
+        "bytes": nbytes,
+        "peak_bytes": peak_bytes(lambda: SG.readout_max(x, oi, am, out=out)),
+        "torch_path_peak_bytes": peak_bytes(broadcast)}
+    print(f"sgpn read-out max {B} x {S} x {n_obj} x {L}: "
+          f"{readout['ms']:.4f} ms (bound {readout['bound_ms']:.4f} ms, "
+          f"bytes), torch path {readout['torch_path_ms']:.4f} ms; peak "
+          f"{readout['torch_path_peak_bytes'] / 1e9:.2f} GB -> "
+          f"{readout['peak_bytes'] / 1e9:.3f} GB; bit for bit")
+
+    rounds = []
+
+    class Counting:             # gpn's span: counts the NMS rounds
+        def __init__(self, name):
+            if name == "subgc.gpn.nms_round":
+                rounds.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    cells = {}
+    s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
+    order = torch.sort(-s, dim=-1, stable=True).indices
+    for cell, (thres, keep) in SGPN_CELLS.items():
+        def nms():
+            return G.subgraph_nms(scores, oi, am, valid, cfg, thres, keep)
+
+        def sgpn_nms():
+            out = G.gpn_test_forward(params, x, oi, am, cfg)
+            return (out.read_out, out.scores,
+                    *G.subgraph_nms(out.scores, oi, am, valid, cfg, thres,
+                                    keep))
+
+        saved, G.span = G.span, Counting
+        try:
+            rounds.clear()
+            got = nms()
+            kernel_rounds = len(rounds)
+            rounds.clear()
+            want = torch_route(nms)
+            torch_rounds = len(rounds)
+        finally:
+            G.span = saved
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"sgpn {cell}: the NMS kernel's keep sets differ from the "
+                 f"torch fixpoint's")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(sgpn_nms(), torch_route(sgpn_nms))):
+            fail(f"sgpn {cell}: the kernel route's read-out, scores or keep "
+                 f"sets differ from the torch route's")
+        nbytes = B * S * (8 + 12 * N + 2)
+        k = min(keep, S)
+        cells[cell] = {
+            "thres": thres, "keep": keep,
+            "kept_per_image": got[1].sum().item() / B,
+            "ms": cuda_ms(lambda: SG.nms_keep_sorted(
+                order, oi, am, valid, thres, k, n_obj)),
+            "bound_ms": 1e3 * nbytes / HBM_RATE, "bound_by": "bytes",
+            "nms_ms": cuda_ms(nms), "torch_nms_ms": cuda_ms(
+                lambda: torch_route(nms)),
+            "rounds": kernel_rounds, "torch_rounds": torch_rounds,
+            "sgpn_nms_ms": cuda_ms(sgpn_nms),
+            "torch_sgpn_nms_ms": cuda_ms(lambda: torch_route(sgpn_nms))}
+        c = cells[cell]
+        print(f"sgpn {cell} (NMS {thres}, keep {keep}; "
+              f"{c['kept_per_image']:.1f} kept an image): kernel "
+              f"{c['ms']:.4f} ms (bound {c['bound_ms']:.4f}); subgraph_nms "
+              f"{c['nms_ms']:.3f} ms against {c['torch_nms_ms']:.3f} "
+              f"({c['torch_rounds']} rounds); sGPN + NMS "
+              f"{c['sgpn_nms_ms']:.3f} ms against "
+              f"{c['torch_sgpn_nms_ms']:.3f}; keep sets, read-outs and "
+              f"scores equal")
+    return {"readout_max": readout, "subgraph_nms": cells}
 
 
 def run_graphs(params, state, examples, cfg, ecfg):
@@ -4030,6 +4198,7 @@ def main():
     from subgc_tpu_torch.ops import _build
     from subgc_tpu_torch.ops import attention as A
     from subgc_tpu_torch.ops import gemm as GM
+    from subgc_tpu_torch.ops import sgpn as SG
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4061,6 +4230,10 @@ def main():
     for line in _build.BUILD_INFO["gemm"]["log"].splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas (gemm):", line.strip())
+    _build.load("sgpn")             # the sGPN read-out max and NMS
+    for line in _build.BUILD_INFO["sgpn"]["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas (sgpn):", line.strip())
 
     # ---- 3. kernel against plain on the card
     cfg, ecfg, _ = build_configs("Sub_GC_Kar",
@@ -4081,6 +4254,10 @@ def main():
     print(json.dumps({"split_gemm": gemm_rows, "sweep": gemm_sweep,
                       "preparation": gemm_prep}))
 
+    # ---- 30. the sGPN test path's kernels at a test dispatch's shapes
+    sgpn = run_sgpn(params, cfg)
+    print(json.dumps({"sgpn": sgpn}))
+
     # ---- 4. main path at full width
     examples = make_examples(cfg, N_IMAGES, BUCKET)
     loader = MemoryLoader(examples)
@@ -4091,11 +4268,17 @@ def main():
     torch.cuda.synchronize()
     A.LAUNCHES = A.ROW_LAUNCHES = A.PROJECT_LAUNCHES = 0
     reset_gemm()
+    SG.reset_launch_counts()
     preds, wall, n_caps = run_test_split(
         params, state, loader, cfg, ecfg, vocab, verbose=False,
         batch_images=BATCH_IMAGES, device="cuda")
     launches = A.LAUNCHES
     n_dispatch = -(-N_IMAGES // BATCH_IMAGES)
+    sgpn_launches = (SG.READOUT_LAUNCHES, SG.NMS_LAUNCHES)
+    if sgpn_launches != (n_dispatch, n_dispatch):
+        fail(f"sGPN kernels launched {sgpn_launches} times (read-out, NMS) "
+             f"on the main path, expected once each a dispatch "
+             f"({n_dispatch})")
     check_gemm_launches("main path",
                         dispatch_rows(preds, BATCH_IMAGES, ecfg.beam_size,
                                       ecfg.gpn_max_subg),
@@ -4320,6 +4503,34 @@ def main():
         "ms": gemm_prep["ms"],
         "plain_ms": gemm_prep["plain_ms"],
         "bound_ms": gemm_prep["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "readout_max",
+        "route": "cuda",
+        "source": "subgc_tpu_torch/ops/csrc/sgpn.cu",
+        "replaces": None,
+        # the main path's (phase 4): one a dispatch; ms at a test
+        # dispatch's shapes, the torch path's masked broadcast beside it
+        "launches": sgpn_launches[0],
+        "max_abs_err": 0.0,
+        "ms": sgpn["readout_max"]["ms"],
+        "plain_ms": sgpn["readout_max"]["torch_path_ms"],
+        "bound_ms": sgpn["readout_max"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "subgraph_nms",
+        "route": "cuda",
+        "source": "subgc_tpu_torch/ops/csrc/sgpn.cu",
+        "replaces": None,
+        # ms at kar_test's threshold and keep; plain_ms the torch route's
+        # subgraph_nms (the fixpoint with its host-synced rounds)
+        "launches": sgpn_launches[1],
+        "max_abs_err": 0.0,
+        "ms": sgpn["subgraph_nms"]["sub_gc.kar_test"]["ms"],
+        "plain_ms": sgpn["subgraph_nms"]["sub_gc.kar_test"]["torch_nms_ms"],
+        "bound_ms": sgpn["subgraph_nms"]["sub_gc.kar_test"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]

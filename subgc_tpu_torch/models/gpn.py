@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import ModelConfig
+from ..ops import sgpn as SG
 from ..parallel import distributed as DP
 from ..utils.profiling import span
 from .encoder import one_hot
@@ -149,25 +150,46 @@ def node_membership(sub_obj_ind, sub_att_mask, n_obj: int):
     return torch.clamp(mem, max=1.0)
 
 
+def _on_card(t) -> bool:
+    """The sGPN test path's route: the kernels of ``ops/sgpn.py`` for CUDA
+    tensors (they raise on what they do not take), torch ops elsewhere."""
+    return t.device.type == "cuda"
+
+
+def masked_max(x_obj_img, mem):
+    """The read-out's max half by torch ops: x_obj_img [..., n_obj, L] and
+    membership mem [..., S, n_obj] -> [..., S, L], the JAX package's
+    literal masked max (non-members sit 1e30 below)."""
+    masked = (x_obj_img[..., None, :, :]
+              + (mem[..., :, :, None] - 1.0) * 1e30)
+    return masked.amax(dim=-2)
+
+
 def gpn_test_forward(params, x_obj_img, sub_obj_ind, sub_att_mask,
                      cfg: ModelConfig) -> GPNTestOut:
     """Score all sub-graphs (gpn.py:83-97) before NMS.
 
     x_obj_img [..., n_obj, L]; sub_obj_ind/sub_att_mask [..., S, N].  The
     read-out pools through the node-set membership matrix: the mean as one
-    matmul, the max over a masked broadcast (post-GCN node features are >= 0
-    and node sets are duplicate-free, so both match the reference's gather).
-    Under ``use_gt_subg`` (the Sup. model, which has no scorer) every score
-    is 1.
+    matmul, the max over a masked broadcast (:func:`masked_max`; post-GCN
+    node features are >= 0 and node sets are duplicate-free, so both match
+    the reference's gather).  On the card the max is
+    ``ops/sgpn.py::readout_max``'s kernel, the same terms read straight
+    from the node lists and written into its half of the read-out, bit for
+    bit the broadcast's.  Under ``use_gt_subg`` (the Sup. model, which has
+    no scorer) every score is 1.
     """
-    n_obj = x_obj_img.shape[-2]
+    n_obj, L = x_obj_img.shape[-2:]
     mem = node_membership(sub_obj_ind, sub_att_mask, n_obj)     # [.., S, n]
-    mean_feat = (mem @ x_obj_img) / sub_att_mask.sum(-1, keepdim=True)
-    # the JAX package's literal masked max: non-members sit 1e30 below
-    masked = (x_obj_img[..., None, :, :]
-              + (mem[..., :, :, None] - 1.0) * 1e30)
-    max_feat = masked.amax(dim=-2)
-    read_out = torch.cat([max_feat, mean_feat], dim=-1)
+    count = sub_att_mask.sum(-1, keepdim=True)
+    if _on_card(x_obj_img):
+        read_out = x_obj_img.new_empty(mem.shape[:-1] + (2 * L,))
+        torch.div(mem @ x_obj_img, count, out=read_out[..., L:])
+        SG.readout_max(x_obj_img, sub_obj_ind, sub_att_mask,
+                       out=read_out[..., :L])
+    else:
+        read_out = torch.cat([masked_max(x_obj_img, mem),
+                              (mem @ x_obj_img) / count], dim=-1)
     if cfg.use_gt_subg:
         scores = torch.ones(sub_obj_ind.shape[:-1], dtype=torch.float32,
                             device=read_out.device)
@@ -183,6 +205,46 @@ def pairwise_node_iou(mem):
     inter = mem @ mem.transpose(-1, -2)
     union = sizes[..., :, None] + sizes[..., None, :] - inter
     return inter / torch.clamp(union, min=1.0)
+
+
+def _keep_sorted_torch(order, sub_obj_ind, sub_att_mask, valid,
+                       cfg: ModelConfig, iou_thres: float, max_keep: int,
+                       parallel: bool):
+    """:func:`subgraph_nms`'s keep set [B, S] in score order ``order``, by
+    torch ops: the parallel fixpoint or the sequential sweep."""
+    B, S = order.shape
+    dev = order.device
+    mem = node_membership(sub_obj_ind, sub_att_mask, cfg.obj_num)
+    valid_sorted = torch.gather(valid, 1, order)
+    bix = torch.arange(B, device=dev)
+    if not parallel:
+        iou = pairwise_node_iou(mem)
+        iou_sorted = iou[bix[:, None, None], order[:, :, None],
+                         order[:, None, :]]
+        alive = valid_sorted.clone()
+        keep_sorted = torch.zeros_like(valid_sorted)
+        for _ in range(max_keep):
+            any_alive = alive.any(-1)
+            i = torch.argmax(alive.to(torch.uint8), dim=-1)  # first alive
+            keep_sorted[bix, i] |= any_alive
+            alive &= ~(iou_sorted[bix, i] > iou_thres)
+            alive[bix, i] = False
+        return keep_sorted
+    iou_sorted = pairwise_node_iou(mem[bix[:, None], order])
+    ar = torch.arange(S, device=dev)
+    # sup[b, j, i]: valid j earlier in score order, IoU above threshold
+    sup = ((iou_sorted > iou_thres) & (ar[:, None] < ar[None, :])
+           & valid_sorted[:, :, None]).to(torch.float32)
+    k, prev = valid_sorted, ~valid_sorted
+    for _ in range(S):
+        with span("subgc.gpn.nms_round"):
+            if not bool((k != prev).any()):
+                break
+            hit = (k.to(torch.float32)[:, None, :] @ sup)[:, 0] > 0.0
+            k, prev = valid_sorted & ~hit, k
+    # full-NMS keep truncated to the max_keep best (greedy prefix)
+    rank = torch.cumsum(k.to(torch.int64), dim=-1) - 1
+    return k & (rank < max_keep)
 
 
 def subgraph_nms(scores, sub_obj_ind, sub_att_mask, valid, cfg: ModelConfig,
@@ -205,6 +267,11 @@ def subgraph_nms(scores, sub_obj_ind, sub_att_mask, valid, cfg: ModelConfig,
       Jacobi step.
     * ``parallel=False``: the sequential sweep, one confirmed keep per
       iteration — the reference's suppression loop truncated to max_keep.
+
+    Both give one keep set.  On the card, whichever ``parallel`` names, it
+    comes from ``ops/sgpn.py::nms_keep_sorted``'s kernel: the greedy sweep
+    in score order, stopped at max_keep, in one launch (one span
+    ``subgc.gpn.nms_round``) with no host sync.
     """
     single = scores.dim() == 1
     if single:
@@ -215,38 +282,15 @@ def subgraph_nms(scores, sub_obj_ind, sub_att_mask, valid, cfg: ModelConfig,
     max_keep = min(max_keep, S)
     s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
     order = torch.sort(-s, dim=-1, stable=True).indices          # [B, S]
-    mem = node_membership(sub_obj_ind, sub_att_mask, cfg.obj_num)
-    valid_sorted = torch.gather(valid, 1, order)
-    bix = torch.arange(B, device=dev)
-
-    if not parallel:
-        iou = pairwise_node_iou(mem)
-        iou_sorted = iou[bix[:, None, None], order[:, :, None],
-                         order[:, None, :]]
-        alive = valid_sorted.clone()
-        keep_sorted = torch.zeros_like(valid_sorted)
-        for _ in range(max_keep):
-            any_alive = alive.any(-1)
-            i = torch.argmax(alive.to(torch.uint8), dim=-1)  # first alive
-            keep_sorted[bix, i] |= any_alive
-            alive &= ~(iou_sorted[bix, i] > iou_thres)
-            alive[bix, i] = False
+    if _on_card(scores):
+        with span("subgc.gpn.nms_round"):
+            keep_sorted = SG.nms_keep_sorted(order, sub_obj_ind, sub_att_mask,
+                                             valid, iou_thres, max_keep,
+                                             cfg.obj_num)
     else:
-        iou_sorted = pairwise_node_iou(mem[bix[:, None], order])
-        ar = torch.arange(S, device=dev)
-        # sup[b, j, i]: valid j earlier in score order, IoU above threshold
-        sup = ((iou_sorted > iou_thres) & (ar[:, None] < ar[None, :])
-               & valid_sorted[:, :, None]).to(torch.float32)
-        k, prev = valid_sorted, ~valid_sorted
-        for _ in range(S):
-            with span("subgc.gpn.nms_round"):
-                if not bool((k != prev).any()):
-                    break
-                hit = (k.to(torch.float32)[:, None, :] @ sup)[:, 0] > 0.0
-                k, prev = valid_sorted & ~hit, k
-        # full-NMS keep truncated to the max_keep best (greedy prefix)
-        rank = torch.cumsum(k.to(torch.int64), dim=-1) - 1
-        keep_sorted = k & (rank < max_keep)
+        keep_sorted = _keep_sorted_torch(order, sub_obj_ind, sub_att_mask,
+                                         valid, cfg, iou_thres, max_keep,
+                                         parallel)
 
     # back to original indices, ascending original order
     idx = torch.arange(S, device=dev).expand(B, S)

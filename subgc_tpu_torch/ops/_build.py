@@ -15,6 +15,10 @@ Every library goes to ``_build/<name>-<hash>.so`` beside this module: the
 compiler writes a temporary file that is renamed into place, so processes
 that build at once agree.  A failed build raises with the compiler's
 output.  Nothing is built when the module is imported.
+
+:func:`entry` looks up a kernel library's C entry and sets its signature
+once; :func:`launch` calls it on a card's current stream and raises on the
+error code it returns.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import tempfile
 import threading
 import time
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 NATIVE = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "native")
@@ -37,6 +43,8 @@ HOST_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 
 _lock = threading.Lock()
 _loaded = {}
+_entries = {}           # (library, entry) -> ctypes function
+_entry_lock = threading.Lock()
 # name -> {"seconds": build seconds (0.0 when cached), "log": compiler output}
 BUILD_INFO = {}
 
@@ -135,3 +143,28 @@ def load_host(name: str) -> ctypes.CDLL:
         if key not in _loaded:
             _loaded[key] = ctypes.CDLL(host_library_path(name))
         return _loaded[key]
+
+
+def entry(lib: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<lib>.cu``'s library, returning an
+    ``int`` error code: built, loaded and given ``argtypes`` on first use
+    (once, however many threads ask at the same time)."""
+    fn = _entries.get((lib, name))
+    if fn is not None:
+        return fn
+    with _entry_lock:
+        if (lib, name) not in _entries:
+            fn = getattr(load(lib), name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _entries[(lib, name)] = fn
+        return _entries[(lib, name)]
+
+
+def launch(what: str, fn, device, *args):
+    """``fn(*args, stream)`` with ``device`` current and ``stream`` its
+    current CUDA stream; raises if the entry returns an error code."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError_t {err}")

@@ -31,7 +31,6 @@ preparation kernel's.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
@@ -46,8 +45,6 @@ GEMM_LAUNCHES = 0
 GEMM_WEIGHT_PREPS = 0
 COUNTS = LaunchCounters(globals(), ("GEMM_LAUNCHES", "GEMM_WEIGHT_PREPS"))
 
-_FN = {}
-_FN_LOCK = threading.Lock()
 F32 = torch.float32
 _MAP_BYTES = 128        # a CUtensorMap
 
@@ -126,21 +123,6 @@ def split_gemm_ref(x, w, bias=None):
     return y.reshape(x.shape[:-1] + (w.N,))
 
 
-def _fn(name, argtypes):
-    """A ctypes entry of the gemm library, built and loaded on first use
-    (once, however many threads ask at the same time)."""
-    fn = _FN.get(name)
-    if fn is not None:
-        return fn
-    with _FN_LOCK:
-        if name not in _FN:
-            fn = getattr(_build.load("gemm"), name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _FN[name] = fn
-        return _FN[name]
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -181,13 +163,11 @@ def prepare_weight(w):
     kp = _padded(K)
     planes = torch.empty((2, N, kp), dtype=F32, device=w.device)
     tmap = ctypes.create_string_buffer(_MAP_BYTES)
-    fn = _fn("subgc_split_prep_f32", [_P, _P, _I, _I, _I, _I, _P, _P])
-    with torch.cuda.device(w.device):     # the tensors' card and stream
-        err = fn(w.data_ptr(), planes.data_ptr(), K, N,
-                 w.stride(0) if K > 1 else N, kp, ctypes.addressof(tmap),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"split_gemm weight preparation failed: {err}")
+    fn = _build.entry("gemm", "subgc_split_prep_f32",
+                      [_P, _P, _I, _I, _I, _I, _P, _P])
+    _build.launch("split_gemm weight preparation", fn, w.device,
+                  w.data_ptr(), planes.data_ptr(), K, N,
+                  w.stride(0) if K > 1 else N, kp, ctypes.addressof(tmap))
     if K and N:         # else the planes are empty, and nothing launched
         count_prep()
     return SplitWeight(planes, K, N, tmap)
@@ -243,13 +223,12 @@ def run_split_gemm(x, w, bias):
         buf[:, :K] = a
         a, lda = buf, buf.stride(0)
     out = torch.empty((M, N), dtype=F32, device=x.device)
-    fn = _fn("subgc_split_gemm_f32", [_P, _I, _P, _P, _P, _I, _I, _I, _P])
-    with torch.cuda.device(x.device):     # the tensors' card and stream
-        err = fn(a.data_ptr(), lda, ctypes.addressof(w.tmap),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 M, N, K, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"split_gemm kernel failed: {err}")
+    fn = _build.entry("gemm", "subgc_split_gemm_f32",
+                      [_P, _I, _P, _P, _P, _I, _I, _I, _P])
+    _build.launch("split_gemm kernel", fn, x.device,
+                  a.data_ptr(), lda, ctypes.addressof(w.tmap),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  M, N, K)
     if M and N:         # else nothing to write, and nothing launched
         count_launch()
     return out.reshape(x.shape[:-1] + (N,))
